@@ -1,0 +1,389 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (fem_shell_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each gated; any failed gate ends the run with a non-zero exit
+before the last line:
+
+1. Device: CUDA is required (no fallback). Prints the card's name and
+   power limit, asserts TF32 is off, builds every CUDA kernel from
+   fem_shell_tpu_torch/csrc.
+2. Kernels against their plain PyTorch versions on the card, on operators
+   assembled by the port: Test-G 64x64 quad (K=9) and tri (K=7), and the
+   1024x1024 tri scale size, in f32 and f64. Error gate relative to
+   max|y|: 1e-13 in f64, 1e-5 in f32 (another summation order over 36*K
+   terms). Times with CUDA events: kernel, plain version, bound (the bytes
+   the product must move over the card's datasheet bandwidth) and one
+   torch.sparse BSR product as a yardstick the port never calls.
+3. Test-G, quad and tri at 64x64 (bench.py parameters, rtol 1e-9,
+   maxiter 400) through MultigridShellSystem(...).solve_fused: centre
+   deflection against the thesis goldens (relative error < 1e-4),
+   iteration counts within 1 of the JAX package's f64 counts, and the
+   kernel's launch counts.
+4. Scale: the same program at 1024x1024 tri (2,097,152 elements,
+   6,303,750 DOF, 7 levels), centre deflection against the analytic
+   Kirchhoff value at relative error < 1e-3.
+
+Prints one JSON line with every ported kernel, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
+"""
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+GOLDEN = {"q": 0.106465, "t": 0.106413}  # bench.py:48 (doc/validation.tex:518)
+KIRCHHOFF = 0.1064045  # bench.py:157, analytic (doc/validation.tex:264-281)
+# CG iterations of the JAX package's MultigridShellSystem(mesh, mat,
+# dtype=float64, assemble=False).solve_fused(forces, rtol=1e-9, maxiter=400,
+# arith="f64") on the CPU for the 64x64 Test-G plates, produced with
+#   JAX_PLATFORMS=cpu python -c "import jax; jax.config.update('jax_enable_x64', True);
+#     import jax.numpy as jnp; from fem_shell_tpu.materials import Material;
+#     from fem_shell_tpu.meshgen import MeshGenParams, generate;
+#     from fem_shell_tpu.mg import MultigridShellSystem as M
+#     for et in 'qt':
+#       m, r, f = generate(MeshGenParams(et, 64, 64, 0, 0, 10, 10, (0,0,0,0), 300.0, 2, et == 'q', 'z'))
+#       s = M(m, Material(0.3, 1e7, 0.5), dtype=jnp.float64, assemble=False)
+#       s.solve_fused(r * f, rtol=1e-9, maxiter=400, arith='f64'); print(et, s.last_iters)"
+JAX_F64_ITERS = {"q": 18, "t": 41}
+ERR_GATE = {torch.float32: 1e-5, torch.float64: 1e-13}
+# datasheet device-memory bandwidth (bytes/s) and vector (non-tensor-core)
+# peak rates (flop/s) by card; the first matching key wins
+CARDS = (
+    ("H100 PCIe", 2.0e12, {torch.float32: 51.2e12, torch.float64: 25.6e12}),
+    ("H100 NVL", 3.9e12, {torch.float32: 60e12, torch.float64: 30e12}),
+    ("H100", 3.35e12, {torch.float32: 67e12, torch.float64: 34e12}),
+    ("H200", 4.8e12, {torch.float32: 67e12, torch.float64: 34e12}),
+)
+KERNELS = {
+    torch.float32: {
+        "name": "stencil_spmv<float>",
+        "replaces": "fem_shell_tpu/ops/pallas_spmv.py:49",
+    },
+    torch.float64: {
+        "name": "stencil_spmv<double>",
+        "replaces": "fem_shell_tpu/ops/pallas_spmv_df.py:102",
+    },
+}
+SOURCE = "fem_shell_tpu_torch/csrc/stencil_spmv.cu"
+
+
+class Gates:
+    """Collects gate failures so every phase reports before the exit."""
+
+    def __init__(self):
+        self.failed = []
+
+    def check(self, ok: bool, what: str):
+        print(f"  gate {'ok  ' if ok else 'FAIL'} {what}", flush=True)
+        if not ok:
+            self.failed.append(what)
+
+
+def card_rates(name: str):
+    for key, bw, peaks in CARDS:
+        if key in name:
+            return bw, peaks
+    raise RuntimeError(f"no datasheet rates for {name!r}")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def plate(et: str, n: int):
+    from fem_shell_tpu_torch import MeshGenParams, generate
+
+    return generate(MeshGenParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z"))
+
+
+def bsr_operator(values, offsets):
+    """The same operator as one torch.sparse BSR matrix with 6x6 blocks,
+    acting on the node-major vector x.T.reshape(-1)."""
+    k, npad = values.shape[1], values.shape[2]
+    dev = values.device
+    nodes = torch.arange(npad, device=dev)
+    cols = nodes[:, None] + torch.tensor(offsets, device=dev)[None, :]  # [Npad, K]
+    valid = (cols >= 0) & (cols < npad)
+    blocks = values.reshape(6, 6, k, npad).permute(3, 2, 0, 1)[valid]  # [nnzb, 6, 6]
+    crow = torch.zeros(npad + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(valid.sum(dim=1), 0)
+    return torch.sparse_bsr_tensor(crow, cols[valid], blocks.contiguous(),
+                                   size=(6 * npad, 6 * npad))
+
+
+def kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
+    """Each kernel against its plain version on operators assembled by the
+    port; returns one record per (shape, dtype)."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_plain
+
+    mat = Material(0.3, 1e7, 0.5)
+    rows = []
+    for et, n in shapes:
+        mesh, _, _ = plate(et, n)
+        sys_ = LargeShellSystem(mesh, mat, device=device, chunk=65536)
+        v64 = sys_.assemble()
+        offs = tuple(int(o) for o in sys_.offsets)
+        k, npad = v64.shape[1], v64.shape[2]
+        x64 = torch.from_numpy(np.random.default_rng(n).normal(size=(6, npad))).to(device)
+        for dtype in (torch.float32, torch.float64):
+            v = v64.to(dtype)
+            x = x64.to(dtype)
+            y = stencil_spmv(v, x, offs)
+            y_plain = stencil_spmv_plain(v, x, offs)
+            torch.cuda.synchronize()
+            scale = float(y_plain.abs().max())
+            err = float((y - y_plain).abs().max()) / scale
+            tag = f"{et}{n} K={k} Npad={npad} {str(dtype)[6:]}"
+            gates.check(err <= ERR_GATE[dtype] and bool(torch.isfinite(y).all()),
+                        f"kernel {tag}: max|y-y_plain|/max|y| = {err:.3e} <= {ERR_GATE[dtype]:.0e}")
+            r = reps[n]
+            ms = cuda_ms(lambda: stencil_spmv(v, x, offs), r)
+            plain_ms = cuda_ms(lambda: stencil_spmv_plain(v, x, offs), max(2, r // 10))
+            # what this product needs: the kernel skips slots whose target
+            # lies outside [0, Npad), and reads every other value once
+            slots = sum(npad - abs(o) for o in offs)
+            nbytes = (36 * slots + 12 * npad) * v.element_size()
+            flops = 72 * slots
+            bound_ms = max(nbytes / bandwidth, flops / peaks[dtype]) * 1e3
+            bound_by = "bytes" if nbytes / bandwidth >= flops / peaks[dtype] else "operations"
+            library_ms, lib_err = None, None
+            try:
+                with warnings.catch_warnings():  # BSR "beta" and invariant-check notices
+                    warnings.simplefilter("ignore", UserWarning)
+                    a = bsr_operator(v, offs)
+                xa = x.T.reshape(-1, 1).contiguous()
+                ya = a @ xa
+                lib_err = float((ya.reshape(npad, 6).T - y_plain).abs().max()) / scale
+                library_ms = cuda_ms(lambda: a @ xa, max(2, r // 2))
+                del a, xa, ya
+            except (RuntimeError, NotImplementedError) as e:  # yardstick only
+                print(f"  library BSR product unavailable for {tag}: {type(e).__name__}: {e}")
+            rec = {
+                "shape": f"{et}{n}", "k": k, "npad": npad, "dtype": str(dtype)[6:],
+                "max_abs_err": float((y - y_plain).abs().max()), "rel_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library_rel_err": lib_err,
+                "bytes": nbytes, "achieved_GBps": nbytes / ms / 1e6,
+            }
+            print(f"  {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"library_ms={library_ms} rel_err={err:.2e} "
+                  f"({rec['achieved_GBps']:.0f} GB/s)", flush=True)
+            rows.append(rec)
+            del v, x, y, y_plain
+        del v64, x64, sys_
+        torch.cuda.empty_cache()
+    return rows
+
+
+def device_profile(fn):
+    """Kernel time by name over one call of ``fn`` (torch.profiler): the
+    device's busy milliseconds (kernels of one stream do not overlap), the
+    window's wall milliseconds, and the top kernels. The profiler's own
+    host overhead lengthens the window, so the idle share it gives is an
+    upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():  # device-side events only: the kernels themselves
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    spmv = sum(r[1] for r in rows if "stencil_spmv_kernel" in r[0])
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
+        "stencil_spmv_ms": spmv,
+        "top": [{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:8]],
+    }
+
+
+def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
+                jax_iters=None):
+    """One main-path run of MultigridShellSystem.solve_fused: launch counts
+    are reset just before the measured solve and read just after. With
+    reps > 1 a warm-up solve comes first and reps-1 more are timed; on
+    CUDA one more solve runs under torch.profiler."""
+    from fem_shell_tpu_torch import Material, MultigridShellSystem
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+
+    mesh, rows, fac = plate(et, n)
+    forces = rows * fac
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), device=device)
+    setup_s = time.perf_counter() - t0
+    if reps > 1:
+        mg.solve_fused(forces, rtol=1e-9, maxiter=400)  # warm-up: library handles, allocator
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # assembly alone (the per-level work solve_fused starts with), timed apart
+        t0 = time.perf_counter()
+        for s in mg._systems:
+            s.assemble()
+        torch.cuda.synchronize()
+        assemble_s = time.perf_counter() - t0
+    else:
+        assemble_s = None
+    for dt in stencil_spmv.launches:
+        stencil_spmv.launches[dt] = 0
+    t0 = time.perf_counter()
+    u = mg.solve_fused(forces, rtol=1e-9, maxiter=400)
+    if cuda:
+        torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dict(stencil_spmv.launches)
+    times = [solve_s]
+    for _ in range(reps - 1):
+        t0 = time.perf_counter()
+        mg.solve_fused(forces, rtol=1e-9, maxiter=400)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    prof = device_profile(lambda: mg.solve_fused(forces, rtol=1e-9, maxiter=400)) if cuda else None
+    it, nl = mg.last_iters, mg.n_levels
+    w = float(u[mesh.n_nodes // 2, 2])
+    err = abs(w - golden) / golden
+    tag = f"{et}{n}"
+    # one f64 matvec per CG iteration; per non-coarsest level 21 power-
+    # iteration matvecs, and 7 per V-cycle (3+3 smoothing sweeps and one
+    # residual), the V-cycle applied once before the loop and once per iteration
+    want32 = (nl - 1) * (21 + 7 * (it + 1))
+    f32, f64 = launches[torch.float32], launches[torch.float64]
+    gates.check(tuple(u.shape) == (mesh.n_nodes, 6) and bool(torch.isfinite(u).all()),
+                f"solve {tag}: finite displacements [{mesh.n_nodes}, 6]")
+    gates.check(err < gate_rel, f"solve {tag}: centre w {w:.7f} vs {golden}: rel err {err:.2e} < {gate_rel:.0e}")
+    gates.check(mg.last_residual < 1e-9, f"solve {tag}: residual {mg.last_residual:.2e} < 1e-9")
+    if jax_iters is not None:
+        gates.check(abs(it - jax_iters) <= 1, f"solve {tag}: {it} iterations vs JAX f64 {jax_iters} (+-1)")
+    if cuda:
+        gates.check(f64 >= it and f32 >= want32,
+                    f"solve {tag}: launches f64 {f64} >= {it}, f32 {f32} >= {want32}")
+    rec = {
+        "case": tag, "levels": nl, "iters": it, "residual": mg.last_residual, "center_w": w,
+        "rel_err": err, "setup_s": setup_s, "assemble_s": assemble_s, "solve_fused_s": times,
+        "launches_f32": f32, "launches_f64": f64, "expected_f32": want32,
+        "peak_mem_bytes": peak, "profile": prof,
+    }
+    print(f"  {tag}: levels={nl} iters={it} residual={mg.last_residual:.2e} w={w:.7f} "
+          f"rel_err={err:.2e} setup_s={setup_s:.3f} assemble_s={assemble_s} "
+          f"solve_fused_s={['%.4f' % t for t in times]} launches f32={f32} f64={f64} "
+          f"peak_mem={peak}", flush=True)
+    if prof is not None:
+        print(f"  {tag} profile: wall_ms={prof['wall_ms']:.1f} device_busy_ms={prof['device_busy_ms']:.1f} "
+              f"idle_share={prof['idle_share']} stencil_spmv_ms={prof['stencil_spmv_ms']:.1f}", flush=True)
+        for row in prof["top"]:
+            print(f"    {row['ms']:9.3f} ms {row['count']:6d}x {row['kernel']}", flush=True)
+    return rec
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from fem_shell_tpu_torch.ops import _build  # raises in a directory without the port
+
+    gates = Gates()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 must stay off for f32 products")
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    name = torch.cuda.get_device_name(0)
+    bandwidth, peaks = card_rates(name)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+          f"count {torch.cuda.device_count()}", flush=True)
+
+    print("phase 1: build", flush=True)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for stem, info in built.items():
+        ptxas = [ln for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
+        print(f"  built {stem} in {info['seconds']:.1f} s: {' | '.join(ptxas)}", flush=True)
+    print(f"  build_s={build_s:.2f}", flush=True)
+
+    print("phase 2: kernels against their plain versions", flush=True)
+    shapes = [("q", 64), ("t", 64), ("t", 1024)]
+    kern = kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
+
+    print("phase 3: Test-G (64x64, rtol 1e-9)", flush=True)
+    runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et])
+            for et in ("q", "t")]
+
+    print("phase 4: scale (1024x1024 tri)", flush=True)
+    runs.append(solve_phase(gates, "t", 1024, reps=2, golden=KIRCHHOFF, gate_rel=1e-3))
+
+    entries = []
+    for dtype, meta in KERNELS.items():
+        mine = [r for r in kern if r["dtype"] == str(dtype)[6:]]
+        at = mine[-1]  # the scale shape: the largest the main path gives the kernel
+        key = "launches_f32" if dtype == torch.float32 else "launches_f64"
+        entries.append({
+            "name": meta["name"], "route": "cuda", "source": SOURCE, "replaces": meta["replaces"],
+            "launches": sum(r[key] for r in runs),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_rel_err": max(r["rel_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "at": f"{at['shape']} K={at['k']} Npad={at['npad']}",
+            "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                         for r in mine],
+        })
+        gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
+        {"card": smi, "build_s": build_s, "kernels": kern, "solves": runs}, indent=1))
+    if gates.failed:
+        print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)
+        for what in gates.failed:
+            print(f"  {what}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": entries}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

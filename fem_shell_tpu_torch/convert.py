@@ -1,0 +1,80 @@
+"""Carry state across from the JAX package to the port.
+
+The functions take the JAX package's objects (or anything with the same
+fields) and read every array through ``numpy.asarray``, so this module —
+like the whole port — imports nothing of JAX. With them a test feeds the
+same mesh, material, assembled operator and multigrid levels to both
+packages.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from fem_shell_tpu_torch.device import resolve_device
+from fem_shell_tpu_torch.materials import Material
+from fem_shell_tpu_torch.mesh import ShellMesh
+from fem_shell_tpu_torch.mg import _Level
+
+
+def mesh_from_jax(mesh) -> ShellMesh:
+    """A JAX-package ``ShellMesh`` as the port's ``ShellMesh``."""
+    extra = getattr(mesh, "node_dirichlet_mask", None)
+    return ShellMesh(
+        np.asarray(mesh.coords, np.float64),
+        np.asarray(mesh.elem_types, np.int32),
+        np.asarray(mesh.elem_conn, np.int32),
+        np.asarray(mesh.boundary_sides, np.int32),
+        boundary_nodes=np.asarray(getattr(mesh, "boundary_nodes", np.zeros((0, 2))), np.int32),
+        node_dirichlet_mask=None if extra is None else np.asarray(extra, bool),
+    )
+
+
+def material_from_jax(material) -> Material:
+    """A JAX-package ``Material`` as the port's ``Material``."""
+    return Material(float(material.nu), float(material.em), float(material.thickness))
+
+
+def _tensor(a, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(np.asarray(a))).to(device)  # owned, writable copy
+
+
+def level_from_jax(lvl, device=None) -> _Level:
+    """One JAX-package multigrid ``_Level`` as the port's ``_Level``, each
+    array in its own dtype.
+
+    Carries ``values`` ([36, K, Npad], or flat [36K, Npad], which is
+    reshaped), ``offsets``, ``free_t``, ``inv_diag``, ``nyp``, ``nxp``,
+    ``npad``, ``omega``, ``lam``, ``chol`` and ``chol_scale``. A tile-major
+    (4-D) Pallas value layout is a TPU artefact and is refused.
+    """
+    dev = resolve_device(device)
+    offsets = tuple(int(o) for o in lvl.offsets)
+    values = None
+    if lvl.values is not None:
+        v = np.asarray(lvl.values)
+        if v.ndim == 4:
+            raise ValueError("tile-major (TPU Pallas) values layout: untile it first")
+        values = _tensor(v.reshape(36, len(offsets), int(lvl.npad)), dev)
+    return _Level(
+        values=values,
+        offsets=offsets,
+        free_t=_tensor(lvl.free_t, dev),
+        inv_diag=_tensor(lvl.inv_diag, dev),
+        nyp=int(lvl.nyp),
+        nxp=int(lvl.nxp),
+        npad=int(lvl.npad),
+        omega=_tensor(lvl.omega, dev),
+        chol=_tensor(lvl.chol, dev),
+        chol_scale=_tensor(lvl.chol_scale, dev),
+        lam=_tensor(lvl.lam, dev),
+    )
+
+
+def levels_from_jax(levels: Iterable, device=None) -> List[_Level]:
+    """A whole JAX-package level stack (finest first)."""
+    return [level_from_jax(lvl, device=device) for lvl in levels]

@@ -1,0 +1,207 @@
+"""Mesh data structures and XDA / force-file input.
+
+Port of ``fem_shell_tpu/mesh.py``: the mesh is a set of flat numpy arrays
+(coordinates ``[N,3]``, per-type connectivity ``tri [Et,3]`` /
+``quad [Eq,4]``, boundary-side records ``[B,3]``) and the per-node
+Dirichlet mask derived from them. Tensors for the device are built by the
+assembler, not here.
+
+File formats parsed (behavioural parity with the reference):
+- libMesh XDA ASCII meshes (files written by src/meshgen/main_all.cpp:
+  226-338). Element type codes: 3 = TRI3, 5 = QUAD4.
+- ``<mesh>_f`` nodal force files (fem-shell.cpp:41-67): token stream
+  ``n_forces factor`` then 6 values (Fx Fy Fz Mx My Mz) per node, each
+  scaled by ``factor``. meshGen writes only ``n_nodes-1`` force rows
+  (main_all.cpp:352,377); missing trailing values read as zero, exactly as
+  the C++ ``operator>>`` at EOF leaves the zero-initialized DenseVector.
+
+Boundary-condition semantics (fem-shell.cpp:87-120):
+- side records project onto nodes (BoundaryInfo::build_node_list_from_side_list)
+- bc ids {0, 20}: "simply supported" -> constrain u, v, w
+- bc ids {1, 21}: "clamped"          -> constrain u, v, w, tx, ty, tz
+
+RCM reordering, uniform refinement, XDR and Gmsh input are not ported yet
+(ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Sequence, Tuple
+
+import numpy as np
+
+# libMesh element type codes as they appear in XDA files.
+XDA_TRI3 = 3
+XDA_QUAD4 = 5
+
+# side -> (local node, local node), libMesh convention for TRI3/QUAD4 edges.
+TRI_SIDES = ((0, 1), (1, 2), (2, 0))
+QUAD_SIDES = ((0, 1), (1, 2), (2, 3), (3, 0))
+
+# Dirichlet semantics (fem-shell.cpp:90-120)
+SIMPLY_SUPPORTED_IDS = (0, 20)  # constrain u,v,w
+CLAMPED_IDS = (1, 21)  # constrain all 6 dofs
+
+
+@dataclasses.dataclass
+class ShellMesh:
+    """Host-side mesh container (numpy).
+
+    ``elem_types``/``elem_conn`` keep the file element order (boundary-side
+    records refer to it); ``tri``/``quad`` are the per-type compacted
+    connectivities the batched element kernels take.
+    """
+
+    coords: np.ndarray  # [N,3] float64
+    elem_types: np.ndarray  # [E] int32, XDA type codes
+    elem_conn: np.ndarray  # [E,4] int32, -1 padded for TRI3
+    boundary_sides: np.ndarray  # [B,3] int32 rows (elem, side, bc_id)
+    boundary_nodes: np.ndarray = None  # [M,2] int32 rows (node, bc_id)
+    node_dirichlet_mask: np.ndarray = None  # optional [N,6] bool OR-ed into dirichlet_mask()
+
+    def __post_init__(self):
+        self.coords = np.asarray(self.coords, dtype=np.float64)
+        self.elem_types = np.asarray(self.elem_types, dtype=np.int32)
+        self.elem_conn = np.asarray(self.elem_conn, dtype=np.int32)
+        self.boundary_sides = np.asarray(self.boundary_sides, dtype=np.int32).reshape(-1, 3)
+        if self.boundary_nodes is None:
+            self.boundary_nodes = np.zeros((0, 2), dtype=np.int32)
+        self.boundary_nodes = np.asarray(self.boundary_nodes, dtype=np.int32).reshape(-1, 2)
+        tri_mask = self.elem_types == XDA_TRI3
+        quad_mask = self.elem_types == XDA_QUAD4
+        self.tri = self.elem_conn[tri_mask][:, :3].astype(np.int32)
+        self.quad = self.elem_conn[quad_mask].astype(np.int32)
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.coords.shape[0])
+
+    @property
+    def n_elems(self) -> int:
+        return int(self.elem_types.shape[0])
+
+    def side_nodes(self, elem: int, side: int) -> Tuple[int, int]:
+        """Global node ids of an element edge (libMesh side convention)."""
+        if self.elem_types[elem] == XDA_TRI3:
+            a, b = TRI_SIDES[side]
+        else:
+            a, b = QUAD_SIDES[side]
+        return int(self.elem_conn[elem, a]), int(self.elem_conn[elem, b])
+
+    def boundary_node_ids(self, bc_ids: Sequence[int]) -> np.ndarray:
+        """Sorted unique node ids carrying any of ``bc_ids`` (side records
+        projected onto their two nodes, plus nodal records)."""
+        wanted = set(int(b) for b in bc_ids)
+        nodes = set()
+        for elem, side, bcid in self.boundary_sides:
+            if int(bcid) in wanted:
+                a, b = self.side_nodes(int(elem), int(side))
+                nodes.add(a)
+                nodes.add(b)
+        for node, bcid in self.boundary_nodes:
+            if int(bcid) in wanted:
+                nodes.add(int(node))
+        return np.array(sorted(nodes), dtype=np.int32)
+
+    def dirichlet_mask(self) -> np.ndarray:
+        """Boolean [N,6] mask, True where the dof is constrained to zero
+        (the two DirichletBoundary objects of fem-shell.cpp:87-120)."""
+        mask = np.zeros((self.n_nodes, 6), dtype=bool)
+        ss = self.boundary_node_ids(SIMPLY_SUPPORTED_IDS)
+        cl = self.boundary_node_ids(CLAMPED_IDS)
+        if ss.size:
+            mask[ss, 0:3] = True
+        if cl.size:
+            mask[cl, :] = True
+        if self.node_dirichlet_mask is not None:
+            mask |= np.asarray(self.node_dirichlet_mask, bool)
+        return mask
+
+
+_NODES_PER_TYPE = {XDA_TRI3: 3, XDA_QUAD4: 4}
+
+
+def _strip_comment(line: str) -> str:
+    return line.split("#", 1)[0].strip()
+
+
+def read_xda(path: str) -> ShellMesh:
+    """Parse a libMesh ASCII XDA mesh (the subset meshGen writes)."""
+    with open(path, "r") as fh:
+        lines = fh.read().splitlines()
+    if not lines or not lines[0].startswith("libMesh"):
+        raise ValueError(f"{path}: not a libMesh XDA file")
+    n_elem = int(_strip_comment(lines[1]).split()[0])
+    n_nodes = int(_strip_comment(lines[2]).split()[0])
+    # lines[3..6]: bc / subdomain / processor / p-level spec files;
+    # lines[7]: n_elem at level 0
+    idx = 8
+    elem_types = np.empty(n_elem, dtype=np.int32)
+    elem_conn = np.full((n_elem, 4), -1, dtype=np.int32)
+    for e in range(n_elem):
+        parts = _strip_comment(lines[idx + e]).split()
+        t = int(parts[0])
+        if t not in _NODES_PER_TYPE:
+            raise ValueError(f"{path}: unsupported XDA element type {t}")
+        nn = _NODES_PER_TYPE[t]
+        elem_types[e] = t
+        elem_conn[e, :nn] = [int(p) for p in parts[1 : 1 + nn]]
+    idx += n_elem
+    coords = np.empty((n_nodes, 3), dtype=np.float64)
+    for i in range(n_nodes):
+        parts = _strip_comment(lines[idx + i]).split()
+        coords[i] = [float(parts[0]), float(parts[1]), float(parts[2])]
+    idx += n_nodes
+    n_bc = (
+        int(_strip_comment(lines[idx]).split()[0])
+        if idx < len(lines) and _strip_comment(lines[idx])
+        else 0
+    )
+    idx += 1
+    bcs = np.zeros((n_bc, 3), dtype=np.int32)
+    for b in range(n_bc):
+        parts = _strip_comment(lines[idx + b]).split()
+        bcs[b] = [int(parts[0]), int(parts[1]), int(parts[2])]
+    return ShellMesh(coords, elem_types, elem_conn, bcs)
+
+
+def force_path_for(mesh_path: str) -> str:
+    """``<mesh>_f`` naming convention (fem-shell.cpp:42-50)."""
+    base, ext = os.path.splitext(mesh_path)
+    if ext in (".xda", ".xdr", ".msh"):
+        return base + "_f"
+    return mesh_path + "_f"
+
+
+def read_forces(path: str, n_nodes: int) -> np.ndarray:
+    """Read a ``_f`` nodal force file into an [N,6] array; missing trailing
+    tokens read as zero (see the module docstring)."""
+    with open(path, "r") as fh:
+        toks = fh.read().split()
+    if not toks:
+        return np.zeros((n_nodes, 6), dtype=np.float64)
+    n_forces = int(float(toks[0]))
+    factor = float(toks[1]) if len(toks) > 1 else 1.0
+    vals = np.zeros(n_forces * 6, dtype=np.float64)
+    data = toks[2 : 2 + n_forces * 6]
+    vals[: len(data)] = [float(t) for t in data]
+    forces = vals.reshape(n_forces, 6) * factor
+    if n_forces < n_nodes:
+        forces = np.vstack([forces, np.zeros((n_nodes - n_forces, 6))])
+    return forces[:n_nodes]
+
+
+def load_mesh_and_forces(mesh_path: str) -> Tuple[ShellMesh, np.ndarray]:
+    """Load an ``.xda`` mesh plus its ``_f`` force file (zeros if absent)."""
+    if not mesh_path.endswith(".xda"):
+        raise NotImplementedError(
+            f"{mesh_path}: only .xda meshes are ported so far (.xdr/.msh: ROADMAP.md Queue 1)"
+        )
+    mesh = read_xda(mesh_path)
+    fpath = force_path_for(mesh_path)
+    if os.path.exists(fpath):
+        forces = read_forces(fpath, mesh.n_nodes)
+    else:
+        forces = np.zeros((mesh.n_nodes, 6), dtype=np.float64)
+    return mesh, forces

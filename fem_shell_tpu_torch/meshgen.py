@@ -1,0 +1,154 @@
+"""Structured plate mesh generator — port of ``fem_shell_tpu/meshgen.py``
+(analog of meshGen, src/meshgen/main_all.cpp:15-390).
+
+Same node/element numbering, edge boundary-condition records and nodal
+force rows as the reference tool:
+
+- nodes row-major over an (nx+1)x(ny+1) grid, with a "dead axis" selecting
+  the plane (x/y/z; main_all.cpp:141-160)
+- quads ``[n, n+1, n+nx+2, n+nx+1]``; triangles split each cell in one of
+  two diagonal orientations ``ul_lr`` (main_all.cpp:162-224)
+- edge BC records for top/bottom/left/right with the reference's
+  element/side numbering (main_all.cpp:283-338)
+- force rows: loading 1 = unit force on node ``n_nodes//2``, loading 2 =
+  uniform area load as equal nodal forces ``factor*dx*dy``
+  (main_all.cpp:341-387), including the reference quirk of emitting only
+  ``n_nodes-1`` rows (the last node's row is zero).
+
+Writing .xda / force files is not ported yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+from fem_shell_tpu_torch.mesh import ShellMesh, XDA_QUAD4, XDA_TRI3
+
+LOAD_NONE = 0
+LOAD_CONCENTRATED = 1  # unit force on central node n_nodes//2
+LOAD_UNIFORM = 2  # factor*dx*dy on every node (but the last; see quirk)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGenParams:
+    """CLI-equivalent parameter set (main_all.cpp:20-33)."""
+
+    elem_type: str  # 'q' or 't'
+    nx: int
+    ny: int
+    min_x: float
+    min_y: float
+    max_x: float
+    max_y: float
+    bcids: Tuple[int, int, int, int]  # (top, bottom, left, right); -1 = none
+    factor: float = 1.0
+    loading: int = LOAD_NONE
+    ul_lr: bool = True
+    dead_axis: str = "z"
+
+
+def generate(p: MeshGenParams) -> Tuple[ShellMesh, np.ndarray, float]:
+    """Build (mesh, unscaled force rows [n,6], force factor)."""
+    if p.elem_type not in ("q", "t"):
+        raise ValueError("elem_type must be 'q' or 't'")
+    if p.dead_axis not in ("x", "y", "z"):
+        raise ValueError("dead_axis must be one of x/y/z")
+    nx, ny = p.nx, p.ny
+    n_nodes = (nx + 1) * (ny + 1)
+    fracx = (p.max_x - p.min_x) / nx
+    fracy = (p.max_y - p.min_y) / ny
+
+    # nodes, row-major (main_all.cpp:144-160)
+    xs = p.min_x + fracx * np.arange(nx + 1)
+    ys = p.min_y + fracy * np.arange(ny + 1)
+    gx, gy = np.meshgrid(xs, ys)
+    prim = gx.reshape(-1)
+    sec = gy.reshape(-1)
+    coords = np.zeros((n_nodes, 3), dtype=np.float64)
+    if p.dead_axis == "z":
+        coords[:, 0] = prim
+        coords[:, 1] = sec
+    elif p.dead_axis == "y":
+        coords[:, 0] = prim
+        coords[:, 2] = sec
+    else:
+        coords[:, 1] = prim
+        coords[:, 2] = sec
+
+    # elements (main_all.cpp:163-224)
+    yy, xx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    n_id = (xx + yy * (nx + 1)).reshape(-1).astype(np.int64)
+    if p.elem_type == "q":
+        elem_conn = np.stack(
+            [n_id, n_id + 1, n_id + nx + 2, n_id + nx + 1], axis=1
+        ).astype(np.int32)
+        elem_types = np.full(len(n_id), XDA_QUAD4, dtype=np.int32)
+    else:
+        if p.ul_lr:
+            tri1 = np.stack([n_id, n_id + 1, n_id + nx + 1], axis=1)
+            tri2 = np.stack([n_id + 1, n_id + nx + 2, n_id + nx + 1], axis=1)
+        else:
+            tri1 = np.stack([n_id, n_id + nx + 2, n_id + 1], axis=1)
+            tri2 = np.stack([n_id + nx + 2, n_id, n_id + nx + 1], axis=1)
+        both = np.stack([tri1, tri2], axis=1).reshape(-1, 3)
+        elem_conn = np.hstack(
+            [both, np.full((len(both), 1), -1, dtype=np.int64)]
+        ).astype(np.int32)
+        elem_types = np.full(len(both), XDA_TRI3, dtype=np.int32)
+
+    # boundary records (main_all.cpp:283-338), in the reference's emission
+    # order: all top/bottom pairs first, then left/right pairs
+    t_bc, b_bc, l_bc, r_bc = p.bcids
+    bcs = []
+    for i in range(nx):
+        if p.elem_type == "t":
+            if p.ul_lr:
+                if b_bc >= 0:
+                    bcs.append((2 * i, 0, b_bc))
+                if t_bc >= 0:
+                    bcs.append((2 * nx * ny - 2 * i - 1, 1, t_bc))
+            else:
+                if b_bc >= 0:
+                    bcs.append((2 * i, 2, b_bc))
+                if t_bc >= 0:
+                    bcs.append((2 * nx * ny - 2 * i - 1, 2, t_bc))
+        else:
+            if b_bc >= 0:
+                bcs.append((i, 0, b_bc))
+            if t_bc >= 0:
+                bcs.append((nx * ny - 1 - i, 2, t_bc))
+    for i in range(ny):
+        if p.elem_type == "t":
+            if p.ul_lr:
+                if l_bc >= 0:
+                    bcs.append((2 * nx * i, 2, l_bc))
+                if r_bc >= 0:
+                    bcs.append((2 * nx * (i + 1) - 1, 0, r_bc))
+            else:
+                if l_bc >= 0:
+                    bcs.append((2 * nx * i + 1, 1, l_bc))
+                if r_bc >= 0:
+                    bcs.append((2 * nx * (i + 1) - 2, 1, r_bc))
+        else:
+            if l_bc >= 0:
+                bcs.append((nx * i, 3, l_bc))
+            if r_bc >= 0:
+                bcs.append((nx * (i + 1) - 1, 1, r_bc))
+    boundary = np.array(bcs, dtype=np.int32).reshape(-1, 3)
+
+    mesh = ShellMesh(coords, elem_types, elem_conn, boundary)
+
+    # force rows (unscaled; factor returned separately) — main_all.cpp:341-387
+    force_dir = {"x": 0, "y": 1, "z": 2}[p.dead_axis]
+    rows = np.zeros((n_nodes, 6), dtype=np.float64)
+    factor = p.factor
+    if p.loading == LOAD_CONCENTRATED:
+        target = n_nodes // 2
+        if target < n_nodes - 1:  # rows 0..n_nodes-2 are written
+            rows[target, force_dir] = 1.0
+    elif p.loading == LOAD_UNIFORM:
+        factor = p.factor * fracx * fracy
+        rows[: n_nodes - 1, force_dir] = 1.0
+    return mesh, rows, factor

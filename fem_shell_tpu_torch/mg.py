@@ -1,0 +1,491 @@
+"""Geometric multigrid preconditioner for structured flat shell meshes —
+port of the fused core of ``fem_shell_tpu/mg.py``.
+
+- levels are shell operators re-assembled on every-2nd-node subsampled
+  grids (SoA stencil form, ops/soa.py), detected from the connectivity
+  (detect_structured_grid);
+- transfers are bilinear node-grid prolongation P and its transpose,
+  applied per dof component;
+- smoothing is damped Jacobi (or Chebyshev) with per-level damping from a
+  power iteration, symmetric pre/post, so the V-cycle is an SPD
+  preconditioner inside CG;
+- the coarsest level is solved with a Cholesky factor of the diagonally
+  scaled dense operator.
+
+``MultigridShellSystem(mesh, material).solve_fused(forces)`` assembles
+every level in f64, builds the preconditioner and runs f64 PCG over the
+fine operator, preconditioned by the f32 V-cycle. Every matvec goes
+through ``ops/stencil_spmv.stencil_spmv``: f64 for the outer CG, f32 in
+the V-cycle.
+
+On the TPU the JAX package runs the outer CG in two-float32 ("df")
+arithmetic because its f64 is emulated; on a GPU f64 is native, so the
+port's fused solve is the JAX package's ``arith="f64"`` program.
+Galerkin coarse operators (curved shells), W/K cycles, the df operator
+and cycle, the class-table operator, and the ``solve``/``solve_df``/
+``solve_df_refined`` entry points are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fem_shell_tpu_torch.device import resolve_device
+from fem_shell_tpu_torch.large import LargeShellSystem
+from fem_shell_tpu_torch.materials import Material
+from fem_shell_tpu_torch.mesh import ShellMesh, XDA_QUAD4, XDA_TRI3
+from fem_shell_tpu_torch.meshgen import MeshGenParams, generate
+from fem_shell_tpu_torch.ops.soa import _offsets_of, soa_diagonal
+from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+from fem_shell_tpu_torch.solver import pcg
+
+_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
+
+
+# ----------------------------------------------------------------------
+# structured-grid detection
+# ----------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GridInfo:
+    """Row-major structured grid: node = iy*nxp + ix."""
+
+    nxp: int  # nodes per row
+    nyp: int  # node rows
+    elem_type: str  # 'q' | 't'
+    ul_lr: bool  # tri diagonal orientation (meshGen main_all.cpp:163-224)
+
+
+def _grid_conn(nxp: int, nyp: int, elem_type: str, ul_lr: bool):
+    """(elem_types, elem_conn) of the canonical row-major grid mesh — the
+    numbering meshgen.generate emits."""
+    nx, ny = nxp - 1, nyp - 1
+    yy, xx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    n_id = (xx + yy * nxp).reshape(-1).astype(np.int64)
+    if elem_type == "q":
+        conn = np.stack([n_id, n_id + 1, n_id + nxp + 1, n_id + nxp], axis=1)
+        types = np.full(len(n_id), XDA_QUAD4, dtype=np.int32)
+        conn4 = conn.astype(np.int32)
+    else:
+        if ul_lr:
+            tri1 = np.stack([n_id, n_id + 1, n_id + nxp], axis=1)
+            tri2 = np.stack([n_id + 1, n_id + nxp + 1, n_id + nxp], axis=1)
+        else:
+            tri1 = np.stack([n_id, n_id + nxp + 1, n_id + 1], axis=1)
+            tri2 = np.stack([n_id + nxp + 1, n_id, n_id + nxp], axis=1)
+        both = np.stack([tri1, tri2], axis=1).reshape(-1, 3)
+        conn4 = np.hstack([both, np.full((len(both), 1), -1, dtype=np.int64)]).astype(np.int32)
+        types = np.full(len(both), XDA_TRI3, dtype=np.int32)
+    return types, conn4
+
+
+def detect_structured_grid(mesh: ShellMesh) -> Optional[GridInfo]:
+    """Recognize a row-major structured grid from the connectivity alone:
+    candidate row widths come from the stencil offsets and each is verified
+    by rebuilding the canonical connectivity (tri stencils fit both
+    diagonal orientations, so only the comparison decides)."""
+    n = mesh.n_nodes
+    if len(mesh.tri) and len(mesh.quad):
+        return None
+    elem_type = "q" if len(mesh.quad) else "t"
+    conn = mesh.quad if elem_type == "q" else mesh.tri
+    if len(conn) == 0:
+        return None
+    top = int(_offsets_of(mesh)[-1])
+    if elem_type == "q":
+        cands = [(top - 1, True)]  # quad offsets peak at nxp + 1
+    else:
+        cands = [(top, True), (top - 1, False)]  # ul_lr diag=nxp-1 | diag=nxp+1
+    for nxp, ul_lr in cands:
+        if nxp < 2 or n % nxp:
+            continue
+        nyp = n // nxp
+        if nyp < 2:
+            continue
+        n_cells = (nxp - 1) * (nyp - 1)
+        expect_e = n_cells if elem_type == "q" else 2 * n_cells
+        if len(conn) != expect_e:
+            continue
+        _, conn4 = _grid_conn(nxp, nyp, elem_type, ul_lr)
+        want = conn4[:, :4] if elem_type == "q" else conn4[:, :3]
+        if conn.shape == want.shape and (conn == want).all():
+            return GridInfo(nxp, nyp, elem_type, ul_lr)
+    return None
+
+
+@dataclasses.dataclass
+class _Level:
+    """One grid level: operator, masks, smoother and coarse-solve data."""
+
+    values: Optional[torch.Tensor]  # [36, K, Npad]
+    offsets: tuple
+    free_t: torch.Tensor  # [6, Npad]
+    inv_diag: Optional[torch.Tensor]  # [6, Npad]
+    nyp: int  # node rows
+    nxp: int  # node cols
+    npad: int
+    omega: Optional[torch.Tensor] = None  # per-level Jacobi damping (0-d)
+    chol: Optional[torch.Tensor] = None  # coarsest: Cholesky of scaled dense
+    chol_scale: Optional[torch.Tensor] = None  # d^-1/2 for the scaled factor
+    lam: Optional[torch.Tensor] = None  # lambda_max(D^-1 A) estimate (0-d)
+
+
+def _to_grid(x, lvl: _Level):
+    return x[:, : lvl.nyp * lvl.nxp].reshape(6, lvl.nyp, lvl.nxp)
+
+
+def _from_grid(g, lvl: _Level):
+    flat = g.reshape(6, lvl.nyp * lvl.nxp)
+    return F.pad(flat, (0, lvl.npad - lvl.nyp * lvl.nxp))
+
+
+def _prolong(gc):
+    """Bilinear coarse->fine on node grids: [6, nc, mc] -> [6, 2nc-1, 2mc-1]."""
+    c = gc
+    row_mid = 0.5 * (c[:, :-1, :] + c[:, 1:, :])
+    rows = c.new_zeros((6, c.shape[1] + row_mid.shape[1], c.shape[2]))
+    rows[:, 0::2, :] = c
+    rows[:, 1::2, :] = row_mid
+    col_mid = 0.5 * (rows[:, :, :-1] + rows[:, :, 1:])
+    out = rows.new_zeros((6, rows.shape[1], rows.shape[2] + col_mid.shape[2]))
+    out[:, :, 0::2] = rows
+    out[:, :, 1::2] = col_mid
+    return out
+
+
+def _restrict(gf):
+    """P^T on node grids: [6, 2nc-1, 2mc-1] -> [6, nc, mc]. Each coarse node
+    collects its own fine value, 1/2 of its edge-midpoint neighbours and
+    1/4 of its cell centres (columns first, as in the JAX package)."""
+    odd = gf[:, :, 1::2]
+    cols = gf[:, :, 0::2].clone()
+    cols[:, :, :-1] += 0.5 * odd
+    cols[:, :, 1:] += 0.5 * odd
+    odd_r = cols[:, 1::2, :]
+    out = cols[:, 0::2, :].clone()
+    out[:, :-1, :] += 0.5 * odd_r
+    out[:, 1:, :] += 0.5 * odd_r
+    return out
+
+
+def _is_planar(coords, tol: float = 1e-6) -> bool:
+    """True when the node cloud lies in one plane (within tol, relative to
+    the largest in-plane extent)."""
+    c = np.asarray(coords, np.float64)
+    c = c - c.mean(axis=0)
+    w = np.linalg.eigvalsh(c.T @ c)
+    if w[-1] <= 0:
+        return True
+    return float(np.sqrt(max(w[0], 0.0) / w[-1])) <= tol
+
+
+class MultigridShellSystem:
+    """Shell solver with a geometric V-cycle preconditioner (row-major
+    structured flat grid meshes; nx, ny divisible by 2^(levels-1))."""
+
+    def __init__(
+        self,
+        mesh: Union[ShellMesh, MeshGenParams],
+        material: Material,
+        dtype=torch.float64,
+        n_levels: Optional[int] = None,
+        nu_smooth: int = 3,
+        coarse_max: int = 8,
+        chunk: int = 16384,
+        df_operator: bool = False,
+        assemble: bool = False,
+        smoother: str = "jacobi",
+        coarse_op: Optional[str] = None,
+        cycle: Optional[str] = None,
+        device=None,
+    ):
+        """Levels are built lazily: ``solve_fused`` assembles them on every
+        call (``assemble=False``, the JAX package's fused configuration).
+        ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host.
+        Like the JAX package's fused path, solve_fused damps each level's
+        Jacobi smoother with omega = 4/(3 lambda_max)."""
+        if isinstance(mesh, MeshGenParams):
+            mesh, _, _ = generate(mesh)
+        if dtype != torch.float64:
+            raise NotImplementedError(
+                "solve_fused assembles levels in f64: construct "
+                "MultigridShellSystem(..., dtype=torch.float64)"
+            )
+        if df_operator:
+            raise NotImplementedError(f"df_operator: {_ROADMAP}")
+        if assemble:
+            raise NotImplementedError(
+                f"assemble=True (the multi-dispatch solve path): {_ROADMAP}; use solve_fused"
+            )
+        if smoother not in ("jacobi", "chebyshev"):
+            raise ValueError(f"unknown smoother {smoother!r}")
+        if cycle not in (None, "V", "W", "K"):
+            raise ValueError(f"unknown cycle {cycle!r}")
+        if cycle in ("W", "K"):
+            raise NotImplementedError(f"cycle={cycle!r}: {_ROADMAP}")
+        self.device = resolve_device(device)
+        self.material = material
+        self.dtype = dtype
+        self.nu_smooth = nu_smooth
+        self.smoother = smoother
+        self.cheby_lo = 0.25
+        self.cycle = "V"
+
+        grid = detect_structured_grid(mesh)
+        if grid is None:
+            raise ValueError(
+                "multigrid requires a row-major structured grid mesh "
+                "(detect_structured_grid failed)"
+            )
+        self.grid = grid
+        if coarse_op is None:
+            coarse_op = "rediscretize" if _is_planar(mesh.coords) else "galerkin"
+        if coarse_op not in ("rediscretize", "galerkin"):
+            raise ValueError(f"unknown coarse_op {coarse_op!r}")
+        if coarse_op == "galerkin":
+            raise NotImplementedError(f"Galerkin coarse operators (curved shells): {_ROADMAP}")
+        self.coarse_op = coarse_op
+
+        if n_levels is None:
+            n_levels = 1
+            nx, ny = grid.nxp - 1, grid.nyp - 1
+            while nx % 2 == 0 and ny % 2 == 0 and max(nx, ny) > 2 * coarse_max:
+                nx //= 2
+                ny //= 2
+                n_levels += 1
+        self.n_levels = n_levels
+
+        # level geometry/BC: every-2nd-node subsampling of the FINE grid
+        coords_g = np.asarray(mesh.coords, np.float64).reshape(grid.nyp, grid.nxp, 3)
+        mask_g = mesh.dirichlet_mask().reshape(grid.nyp, grid.nxp, 6)
+        self.levels: List[_Level] = []
+        self._systems: List[LargeShellSystem] = []
+        for l in range(n_levels):
+            f = 2**l
+            if (grid.nxp - 1) % f or (grid.nyp - 1) % f:
+                raise ValueError(f"nx/ny not divisible by 2^{l}")
+            cg, mg_ = coords_g[::f, ::f], mask_g[::f, ::f]
+            nyp_l, nxp_l = cg.shape[0], cg.shape[1]
+            types_l, conn_l = _grid_conn(nxp_l, nyp_l, grid.elem_type, grid.ul_lr)
+            mesh_l = (
+                mesh
+                if l == 0
+                else ShellMesh(cg.reshape(-1, 3), types_l, conn_l, np.zeros((0, 3), np.int32))
+            )
+            sys_l = LargeShellSystem(
+                mesh_l,
+                material,
+                dtype=dtype,
+                chunk=chunk if l == 0 else min(chunk, 4096),
+                dirichlet_mask=mg_.reshape(-1, 6),
+                device=self.device,
+            )
+            self._systems.append(sys_l)
+            self.levels.append(
+                _Level(
+                    values=None,
+                    offsets=tuple(int(o) for o in sys_l.offsets),
+                    free_t=sys_l.free_t,
+                    inv_diag=None,
+                    nyp=nyp_l,
+                    nxp=nxp_l,
+                    npad=sys_l.pattern.n_pad,
+                )
+            )
+        self._fine = self.levels[0]
+
+    # ------------------------------------------------------------------
+    def _mv(self, lvl: _Level, x):
+        """Level matvec: always the stencil block-SpMV kernel."""
+        return stencil_spmv(lvl.values, x, lvl.offsets)
+
+    def _power_lambda(self, lvl: _Level):
+        """lambda_max(D^-1 A) UPPER estimate for one level (0-d tensor):
+        20 power steps on the symmetrized S = D^-1/2 A D^-1/2, then the
+        Rayleigh quotient theta plus the Ritz residual norm ||S v - theta v||
+        (a plain power estimate is a lower bound, and the Chebyshev
+        smoother diverges outside its interval)."""
+        n = lvl.npad
+        dt, dev = lvl.inv_diag.dtype, lvl.inv_diag.device
+        i = torch.arange(6 * n, dtype=dt, device=dev).reshape(6, n)
+        v = (torch.sin(i * 0.7311) + 0.1) * lvl.free_t
+        tiny = 1e-30
+        # guard: a level whose DOFs are all constrained would hit 0/0
+        v = v / torch.clamp(torch.sqrt(torch.sum(v * v)), min=tiny)
+        dis = torch.sqrt(lvl.inv_diag)
+
+        def smv(v):
+            return dis * self._mv(lvl, dis * v)
+
+        for _ in range(20):
+            w = smv(v)
+            v = w / torch.clamp(torch.sqrt(torch.sum(w * w)), min=tiny)
+        w = smv(v)
+        vn2 = torch.clamp(torch.sum(v * v), min=tiny)
+        theta = torch.sum(v * w) / vn2
+        resid = torch.sqrt(torch.clamp(torch.sum((w - theta * v) ** 2) / vn2, min=0.0))
+        return torch.clamp(theta + resid, min=tiny)
+
+    def _smooth(self, lvl: _Level, x, b, sweeps):
+        if self.smoother == "chebyshev" and lvl.lam is not None:
+            return self._smooth_cheby(lvl, x, b, sweeps)
+        for _ in range(sweeps):
+            r = b - self._mv(lvl, x)
+            x = x + lvl.omega * lvl.inv_diag * r
+        return x
+
+    def _smooth_cheby(self, lvl: _Level, x, b, deg):
+        """Degree-``deg`` Chebyshev smoothing on D^-1 A over
+        [0.25, 1.05]*lam_max: a fixed polynomial in the preconditioned
+        operator, so the V-cycle stays SPD."""
+        lam = lvl.lam.to(lvl.inv_diag.dtype) * 1.05
+        lmin = self.cheby_lo * lam
+        theta = 0.5 * (lam + lmin)
+        delta = 0.5 * (lam - lmin)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        z = lvl.inv_diag * (b - self._mv(lvl, x))
+        p = z / theta
+        x = x + p
+        for _ in range(deg - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            z = lvl.inv_diag * (b - self._mv(lvl, x))
+            p = (rho_new * rho) * p + (2.0 * rho_new / delta) * z
+            x = x + p
+            rho = rho_new
+        return x
+
+    def _vcycle(self, levels, li: int, b):
+        lvl = levels[li]
+        if lvl.chol is not None:
+            # coarse solve: Cholesky of the diagonally scaled dense operator
+            n_real = lvl.nyp * lvl.nxp
+            rhs = (lvl.chol_scale * b[:, :n_real].reshape(-1))[:, None]
+            y = torch.linalg.solve_triangular(lvl.chol, rhs, upper=False)
+            z = torch.linalg.solve_triangular(lvl.chol.mT, y, upper=True)
+            flat = (lvl.chol_scale * z[:, 0]).reshape(6, n_real)
+            return F.pad(flat, (0, lvl.npad - n_real)) * lvl.free_t
+        x = torch.zeros_like(b)
+        x = self._smooth(lvl, x, b, self.nu_smooth)
+        r = b - self._mv(lvl, x)
+        nxt = levels[li + 1]
+        rc = _from_grid(_restrict(_to_grid(r, lvl)), nxt) * nxt.free_t
+        ec = self._coarse_visit(levels, li + 1, rc)
+        x = x + _from_grid(_prolong(_to_grid(ec, nxt)), lvl) * lvl.free_t
+        return self._smooth(lvl, x, b, self.nu_smooth)
+
+    def _coarse_visit(self, levels, li: int, rc):
+        """Coarse-level solve for the V cycle: one recursive visit."""
+        return self._vcycle(levels, li, rc)
+
+    # ------------------------------------------------------------------
+    def _fused_impl(self, coords_list, tables_list, forces_t, rtol, maxiter, arith):
+        """Assemble every level in f64, build the f32 V-cycle (Jacobi
+        diagonals, power-iteration damping, coarse Cholesky) and run f64
+        PCG over the fine operator. Returns (x [6, Npad] f64, iters,
+        relative residual)."""
+        if arith != "f64":
+            raise ValueError(f"arith={arith!r}: the port runs arith='f64'")
+        levels32 = []
+        fine64 = None
+        for l, sys_l in enumerate(self._systems):
+            base = self.levels[l]
+            v64 = sys_l._assemble_impl(coords_list[l], tables_list[l])
+            diag = soa_diagonal(v64, offsets=base.offsets)
+            if l == 0:
+                fine64 = v64
+            inv_diag = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag))
+            lvl = dataclasses.replace(
+                base,
+                values=v64.to(torch.float32),
+                free_t=base.free_t.to(torch.float32),
+                inv_diag=inv_diag.to(torch.float32),
+            )
+            if l == self.n_levels - 1:
+                dense = _densify(dataclasses.replace(lvl, values=v64))
+                d = torch.diagonal(dense)
+                s = torch.where(d > 0, 1.0 / torch.sqrt(d), torch.ones_like(d))
+                scaled = (dense * s[None, :] * s[:, None]).to(torch.float32)
+                lvl = dataclasses.replace(
+                    lvl,
+                    chol=torch.linalg.cholesky(scaled),
+                    chol_scale=s.to(torch.float32),
+                )
+            else:
+                lam = self._power_lambda(lvl)
+                lvl = dataclasses.replace(
+                    lvl, omega=torch.clamp(4.0 / (3.0 * lam), 0.2, 1.0), lam=lam
+                )
+            levels32.append(lvl)
+            del v64
+
+        fine = levels32[0]
+        b64 = forces_t * self.levels[0].free_t
+
+        def mv64(x):
+            return stencil_spmv(fine64, x, fine.offsets)
+
+        def prec64(r):
+            return self._vcycle(levels32, 0, r.to(torch.float32)).to(torch.float64)
+
+        res = pcg(mv64, b64, rtol=rtol, maxiter=maxiter, apply_prec=prec64)
+        return res.x, res.iters, res.residual
+
+    def solve_fused(self, forces, rtol: float = 1e-9, maxiter: int = 400, arith: str = "f64"):
+        """Assembly + preconditioner setup + f64 PCG in one call. ``forces``
+        is [n_nodes, 6] (numpy or tensor). Returns the displacements as an
+        f64 tensor [n_nodes, 6] on the system's device; ``last_iters`` and
+        ``last_residual`` hold the CG iteration count and final relative
+        residual. ``arith='df'`` is the TPU's two-float32 CG: native f64
+        replaces it on a GPU, so it is refused."""
+        if arith == "df":
+            raise ValueError(
+                "arith='df' (two-float32 CG) exists because TPU f64 is emulated; "
+                "on this device native f64 replaces it: use arith='f64'"
+            )
+        lvl = self._fine
+        n = lvl.nyp * lvl.nxp
+        f = torch.as_tensor(forces, dtype=torch.float64, device=self.device)
+        f_t = torch.zeros((6, lvl.npad), dtype=torch.float64, device=self.device)
+        f_t[:, :n] = f.T
+        coords = [s.coords for s in self._systems]
+        tables = [s._tables for s in self._systems]
+        x64, iters, res = self._fused_impl(coords, tables, f_t, rtol, maxiter, arith)
+        self.last_iters = int(iters)
+        self.last_residual = float(res)
+        return x64[:, :n].T.contiguous()
+
+    def solve(self, forces, rtol: float = 1e-10, maxiter: int = 2000):
+        raise NotImplementedError(f"MultigridShellSystem.solve: {_ROADMAP}; use solve_fused")
+
+    def solve_df(self, forces, rtol: float = 1e-9, maxiter: int = 2000):
+        raise NotImplementedError(f"MultigridShellSystem.solve_df: {_ROADMAP}")
+
+    def solve_df_refined(self, forces, rtol: float = 1e-9):
+        raise NotImplementedError(f"MultigridShellSystem.solve_df_refined: {_ROADMAP}")
+
+
+def _densify(lvl: _Level) -> torch.Tensor:
+    """Dense [6n, 6n] matrix over the REAL nodes of a (small) stencil level;
+    padded rows are decoupled identity and stay out of the dense solve.
+    Rows and columns are component-major (a*n + i), matching [6, n]
+    vectors flattened with reshape(-1)."""
+    n = lvl.nyp * lvl.nxp
+    k = len(lvl.offsets)
+    v = lvl.values.reshape(6, 6, k, lvl.npad)[:, :, :, :n]
+    dense = v.new_zeros((6, n, 6, n))
+    dev = v.device
+    cols = torch.arange(n, device=dev)
+    a_idx = torch.arange(6, device=dev)[:, None, None]
+    b_idx = torch.arange(6, device=dev)[None, :, None]
+    for s, off in enumerate(lvl.offsets):
+        tgt = cols + off
+        ok = (tgt >= 0) & (tgt < n)
+        i, t = cols[ok][None, None, :], tgt[ok][None, None, :]
+        dense.index_put_((a_idx, i, b_idx, t), v[:, :, s, :][:, :, ok], accumulate=True)
+    return dense.reshape(6 * n, 6 * n)

@@ -1,0 +1,93 @@
+"""The port's package rules: fem_shell_tpu_torch (and chip_smoke.py)
+import nothing of JAX or of the JAX package, importing the package builds
+no kernel, and asking for CUDA where there is none raises instead of
+falling back to the CPU."""
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, generate
+from fem_shell_tpu_torch.device import resolve_device
+from fem_shell_tpu_torch.large import LargeShellSystem
+
+ROOT = Path(__file__).resolve().parent.parent
+_FOREIGN = re.compile(r"^jax(\.|$)|\bfem_shell_tpu\b(?!_torch)")
+
+_CHILD = r"""
+import sys
+import fem_shell_tpu_torch
+from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, generate
+from fem_shell_tpu_torch.ops import _build
+p = MeshGenParams("q", 8, 8, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z")
+mesh, rows, fac = generate(p)
+mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), device="cpu")
+u = mg.solve_fused(rows * fac)
+assert mg.last_residual < 1e-9
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "fem_shell_tpu" or m.startswith("fem_shell_tpu."))
+print("FOREIGN", bad)
+print("LOADED", sorted(_build._loaded))
+"""
+
+
+def test_package_and_solve_import_no_jax():
+    # a fresh interpreter: this test process has imported JAX already
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout  # no kernel built or loaded
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_sources_import_no_jax():
+    files = sorted((ROOT / "fem_shell_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            assert not _FOREIGN.search(mod), f"{f.relative_to(ROOT)} imports {mod}"
+        src = f.read_text()
+        assert "import_module(" not in src and "__import__(" not in src, f
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = MeshGenParams("q", 8, 8, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z")
+    mesh, _, _ = generate(p)
+    mat = Material(0.3, 1e7, 0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultigridShellSystem(mesh, mat)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LargeShellSystem(mesh, mat, device="cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line where CUDA
+    is missing, and in a directory that holds nothing else of the repo."""
+    env = dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES="")  # no card, even where there is one
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
