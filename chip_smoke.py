@@ -16,6 +16,17 @@ before the last line:
    terms). Times with CUDA events: kernel, plain version, bound (the bytes
    the product must move over the card's datasheet bandwidth) and one
    torch.sparse BSR product as a yardstick the port never calls.
+2b. The class-stencil kernel against its plain version on the card, on
+   class tables built by the port (64x64 quad K=9 and tri K=7, 1024x1024
+   tri): the f64 operator, the f32 operator, the fused w * (b - A x) form
+   and the E term. Error gate relative to max|y|: 1e-13 in f64, 1e-5 in
+   f32 (the band deltas cancel against the interior row to the same
+   ~eps*|c_int|*|x| in both versions; measured 1.6e-7). Times with CUDA
+   events: kernel, plain version, bound (bytes the launch must move over
+   the datasheet bandwidth, or its operations over the vector peak,
+   whichever is larger) and one torch.nn.functional.conv2d (6->6, 3x3,
+   zero padding: the interior term only) as a yardstick the port never
+   calls.
 3. Test-G, quad and tri at 64x64 (bench.py parameters, rtol 1e-9,
    maxiter 400) through MultigridShellSystem(...).solve_fused: centre
    deflection against the thesis goldens (relative error < 1e-4),
@@ -24,12 +35,25 @@ before the last line:
 4. Scale: the same program at 1024x1024 tri (2,097,152 elements,
    6,303,750 DOF, 7 levels), centre deflection against the analytic
    Kirchhoff value at relative error < 1e-3.
+5. The scale path of bench.py bench_scale at 1024x1024 tri:
+   MultigridShellSystem(mesh, mat, dtype=float32, df_operator=True,
+   smoother="chebyshev"), stage_forces, a warm-up
+   solve_df_refined(rtol=1e-9, return_device=True), then reassemble() +
+   solve twice (the second pair is the steady state, counted and
+   reported; the first is *_first), fetch_solution. Gates: centre
+   deflection within 1e-3 of the Kirchhoff value, final true residual
+   <= 9.7e-4 (the JAX package's df floor at this size), a finite
+   history, class-kernel launches >= the count from the code, and no
+   stencil_spmv<double> launch (no fine operator exists). Then the class
+   path on the Test-G plates, 64x64 quad and tri, against the goldens
+   (relative 1e-4).
 
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
 import json
+import platform
 import subprocess
 import sys
 import time
@@ -76,6 +100,20 @@ KERNELS = {
     },
 }
 SOURCE = "fem_shell_tpu_torch/csrc/stencil_spmv.cu"
+CLASS_KERNELS = {
+    torch.float32: {
+        "name": "class_stencil<float>",
+        "replaces": "fem_shell_tpu/ops/pallas_class.py:130",
+    },
+    torch.float64: {
+        "name": "class_stencil<double>",
+        "replaces": "fem_shell_tpu/ops/pallas_class.py:163",
+    },
+}
+CLASS_SOURCE = "fem_shell_tpu_torch/csrc/class_stencil.cu"
+# the JAX package's refined 1024^2 tri solve reached this true residual,
+# its df representation floor at that size (BENCH_r05.json)
+JAX_SCALE_FLOOR = 9.7e-4
 
 
 class Gates:
@@ -199,6 +237,107 @@ def kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
     return rows
 
 
+def class_work(cp, dtype, fused):
+    """(bytes, operations) one class_stencil launch must move and do on
+    this grid: x read once over the real nodes, y written over Npad, the
+    band tables read once, w and b read over Npad when fused; two
+    operations per accumulated (a, b, s) term whose neighbour lies in the
+    grid (interior, and band again on band nodes), one add per output to
+    join the two sums, and two more when fused."""
+    nyp, nxp, npad = cp.nyp, cp.nxp, cp.npad
+    n = nyp * nxp
+    iy, ix = np.meshgrid(np.arange(nyp), np.arange(nxp), indexing="ij")
+    band = (iy < 2) | (iy >= nyp - 2) | (ix < 2) | (ix >= nxp - 2)
+    terms = 0
+    for (dy, dx), m in zip(cp.offs2d, cp.masks):
+        inside = (iy + dy >= 0) & (iy + dy < nyp) & (ix + dx >= 0) & (ix + dx < nxp)
+        terms += bin(int(m)).count("1") * int(inside.sum() + (inside & band).sum())
+    size = torch.finfo(dtype).bits // 8
+    band_values = cp.hi.bands.numel()
+    nbytes = size * (6 * n + 6 * npad + band_values + (12 * npad if fused else 0))
+    ops = 2 * terms + 6 * n + (12 * npad if fused else 0)
+    return nbytes, ops
+
+
+def class_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
+    """The class-stencil kernel against its plain version on class tables
+    built by the port: the f64 operator, the f32 operator, the fused
+    w * (b - A x) form and the E term; one record per (shape, form)."""
+    import torch.nn.functional as F
+
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.class_matvec import build_class_parts
+    from fem_shell_tpu_torch.ops.class_stencil import class_stencil, class_stencil_plain
+    from fem_shell_tpu_torch.ops.exact_stencil import build_exact_stencil
+
+    mat = Material(0.3, 1e7, 0.5)
+    rows = []
+    for et, n in shapes:
+        mesh, _, _ = plate(et, n)
+        sys_ = LargeShellSystem(mesh, mat, device="cpu")  # pattern and offsets only
+        t0 = time.perf_counter()
+        st = build_exact_stencil(mesh, mat, sys_.offsets)
+        t1 = time.perf_counter()
+        cp, _ = build_class_parts(st, sys_.pattern.n_pad, device=device)
+        torch.cuda.synchronize()
+        tables = {"exact_stencil_s": t1 - t0, "class_parts_s": time.perf_counter() - t1}
+        print(f"  {et}{n} host class tables: {tables}", flush=True)
+        nn, npad, k = cp.nyp * cp.nxp, cp.npad, len(cp.offs2d)
+        rng = np.random.default_rng(n)
+        x64 = torch.zeros((6, npad), dtype=torch.float64)
+        x64[:, :nn] = torch.from_numpy(rng.normal(size=(6, nn)))
+        x64 = x64.to(device)
+        w32 = torch.from_numpy(rng.random((6, npad)).astype(np.float32)).to(device)
+        b32 = torch.from_numpy(rng.normal(size=(6, npad)).astype(np.float32)).to(device)
+        forms = (("f64", cp.a64, x64, None, None), ("f32", cp.hi, x64.float(), None, None),
+                 ("fused", cp.hi, x64.float(), w32, b32), ("e", cp.e, x64.float(), None, None))
+        for form, tab, x, w, b in forms:
+            dtype = x.dtype
+
+            def kern():
+                return class_stencil(tab, x, cp.offs2d, cp.masks, cp.nyp, cp.nxp, w=w, b=b)
+
+            def plain():
+                return class_stencil_plain(tab, x, cp.offs2d, cp.nyp, cp.nxp, w=w, b=b)
+
+            y, y_plain = kern(), plain()
+            torch.cuda.synchronize()
+            scale = float(y_plain.abs().max())
+            err = float((y - y_plain).abs().max()) / scale
+            tag = f"{et}{n} K={k} Npad={npad} {form}"
+            gates.check(err <= ERR_GATE[dtype] and bool(torch.isfinite(y).all()),
+                        f"class kernel {tag}: max|y-y_plain|/max|y| = {err:.3e} <= {ERR_GATE[dtype]:.0e}")
+            r = reps[n]
+            ms = cuda_ms(kern, r)
+            plain_ms = cuda_ms(plain, max(2, r // 10))
+            nbytes, ops = class_work(cp, dtype, w is not None)
+            t_bytes, t_ops = nbytes / bandwidth, ops / peaks[dtype]
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            # yardstick: the interior term alone as one cuDNN convolution
+            weight = torch.zeros((6, 6, 3, 3), dtype=dtype, device=device)
+            for s_, (dy, dx) in enumerate(cp.offs2d):
+                weight[:, :, 1 + dy, 1 + dx] = tab.interior[s_]
+            xg = x[:, :nn].reshape(1, 6, cp.nyp, cp.nxp)
+            library_ms = cuda_ms(lambda: F.conv2d(xg, weight, padding=1), r)
+            rec = {
+                "shape": f"{et}{n}", "k": k, "npad": npad, "form": form, "dtype": str(dtype)[6:],
+                "max_abs_err": float((y - y_plain).abs().max()), "rel_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "bytes": nbytes, "ops": ops,
+                "achieved_GBps": nbytes / ms / 1e6, **tables,
+            }
+            print(f"  {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({rec['bound_by']}) conv2d_ms={library_ms:.4f} rel_err={err:.2e} "
+                  f"({rec['achieved_GBps']:.0f} GB/s)", flush=True)
+            rows.append(rec)
+            del y, y_plain
+        del cp, x64, w32, b32
+        torch.cuda.empty_cache()
+    return rows
+
+
 def device_profile(fn):
     """Kernel time by name over one call of ``fn`` (torch.profiler): the
     device's busy milliseconds (kernels of one stream do not overlap), the
@@ -227,10 +366,11 @@ def device_profile(fn):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     spmv = sum(r[1] for r in rows if "stencil_spmv_kernel" in r[0])
+    cls = sum(r[1] for r in rows if "class_stencil_kernel" in r[0])
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-        "stencil_spmv_ms": spmv,
+        "stencil_spmv_ms": spmv, "class_stencil_ms": cls,
         "top": [{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:8]],
     }
 
@@ -315,6 +455,123 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
     return rec
 
 
+def reset_launches():
+    from fem_shell_tpu_torch.ops.class_stencil import class_stencil
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+
+    for counts in (stencil_spmv.launches, class_stencil.launches):
+        for dt in counts:
+            counts[dt] = 0
+
+
+def read_launches():
+    from fem_shell_tpu_torch.ops.class_stencil import class_stencil
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+
+    return {"spmv_f32": stencil_spmv.launches[torch.float32],
+            "spmv_f64": stencil_spmv.launches[torch.float64],
+            "class_f32": class_stencil.launches[torch.float32],
+            "class_f64": class_stencil.launches[torch.float64]}
+
+
+def class_launch_counts(mg):
+    """Class-kernel launches of one reassemble() + solve_df_refined from
+    the code: f64 = one CG matvec per inner iteration + one residual per
+    refinement pass; f32 = 21 power steps (level 0) + 7 per V-cycle
+    application (3 + 3 smoothing sweeps, one residual; one application
+    before each CG loop and one per iteration) + one E term per pass."""
+    inner, hist = mg.refine_inner_iters, mg.refine_history
+    f64 = sum(inner) + len(hist)
+    f32 = 21 + 7 * (sum(inner) + len(inner)) + len(hist)
+    return f64, f32
+
+
+def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e-3,
+                      steady=True):
+    """The scale path of bench.py bench_scale: the df_operator system with
+    the class-table fine level, staged forces, solve_df_refined. With
+    ``steady`` the warm-up solve, two reassemble()+solve pairs (the second
+    counted and reported) and a profiled solve follow bench_scale; without
+    it one solve runs, counted. No stencil_spmv<double> may launch."""
+    from fem_shell_tpu_torch import Material, MultigridShellSystem
+
+    mesh, rows, fac = plate(et, n)
+    forces = rows * fac
+    tag = f"class {et}{n}"
+    ctr = mesh.n_nodes // 2
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), dtype=torch.float32, df_operator=True,
+                              smoother="chebyshev", device=device)
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    f_dev = mg.stage_forces(forces)
+    times = {"ctor_s": ctor_s}
+    if steady:
+        mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)  # warm-up
+        for label in ("_first", ""):
+            if not label:
+                spmv64_before = read_launches()["spmv_f64"]
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mg.reassemble()
+            torch.cuda.synchronize()
+            times["reassemble" + label + "_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            x_dev = mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)
+            w = float(x_dev[2, ctr])  # a value only the finished solve has
+            times["solve" + label + "_s"] = time.perf_counter() - t0
+    else:  # counted from the constructor on
+        spmv64_before = 0
+        t0 = time.perf_counter()
+        x_dev = mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)
+        w = float(x_dev[2, ctr])
+        times["solve_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    u = mg.fetch_solution(x_dev)
+    want64, want32 = class_launch_counts(mg)
+    hist = list(mg.refine_history)
+    err = abs(w - golden) / golden
+    gates.check(isinstance(u, np.ndarray) and u.shape == (mesh.n_nodes, 6)
+                and abs(float(u[ctr, 2]) - w) < 1e-12,
+                f"{tag}: fetch_solution [{mesh.n_nodes}, 6] equals the synced centre value")
+    gates.check(bool(np.isfinite(u).all()) and all(np.isfinite(hist)),
+                f"{tag}: finite displacements and refine history {['%.3e' % h for h in hist]}")
+    gates.check(err < gate_rel, f"{tag}: centre w {w:.7f} vs {golden}: rel err {err:.2e} < {gate_rel:.0e}")
+    gates.check(hist[-1] <= JAX_SCALE_FLOOR,
+                f"{tag}: final true residual {hist[-1]:.3e} <= {JAX_SCALE_FLOOR:.1e}")
+    gates.check(launches["class_f64"] >= want64 and launches["class_f32"] >= want32,
+                f"{tag}: class launches f64 {launches['class_f64']} >= {want64}, "
+                f"f32 {launches['class_f32']} >= {want32}")
+    gates.check(launches["spmv_f64"] + spmv64_before == 0,
+                f"{tag}: stencil_spmv<double> launches {launches['spmv_f64'] + spmv64_before} == 0")
+    prof = device_profile(lambda: mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)) \
+        if steady else None
+    rec = {
+        "case": tag, "levels": mg.n_levels, "inner_iters": mg.last_iters,
+        "inner_per_solve": list(mg.refine_inner_iters), "refine_history": hist,
+        "true_residual": hist[-1], "center_w": w, "rel_err": err, **times,
+        "launches": launches, "expected_class_f64": want64, "expected_class_f32": want32,
+        "peak_mem_bytes": peak, "profile": prof,
+    }
+    print(f"  {tag}: levels={mg.n_levels} inner_iters={mg.last_iters} {mg.refine_inner_iters} "
+          f"history={['%.3e' % h for h in hist]} w={w:.7f} rel_err={err:.2e} "
+          f"{' '.join(f'{k}={v:.4f}' for k, v in times.items())} launches={launches} "
+          f"expected class f64/f32 {want64}/{want32} peak_mem={peak}", flush=True)
+    if prof is not None:
+        print(f"  {tag} profile: wall_ms={prof['wall_ms']:.1f} device_busy_ms={prof['device_busy_ms']:.1f} "
+              f"idle_share={prof['idle_share']} class_stencil_ms={prof['class_stencil_ms']:.1f} "
+              f"stencil_spmv_ms={prof['stencil_spmv_ms']:.1f}", flush=True)
+        for row in prof["top"]:
+            print(f"    {row['ms']:9.3f} ms {row['count']:6d}x {row['kernel']}", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
@@ -331,7 +588,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     bandwidth, peaks = card_rates(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
-          f"count {torch.cuda.device_count()}", flush=True)
+          f"count {torch.cuda.device_count()} host {platform.machine()} "
+          f"longdouble eps {np.finfo(np.longdouble).eps}", flush=True)
 
     print("phase 1: build", flush=True)
     t0 = time.perf_counter()
@@ -346,12 +604,20 @@ def main() -> int:
     shapes = [("q", 64), ("t", 64), ("t", 1024)]
     kern = kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
 
+    print("phase 2b: class-stencil kernel against its plain version", flush=True)
+    ckern = class_kernel_phase(gates, shapes, {64: 200, 1024: 50}, bandwidth, peaks)
+
     print("phase 3: Test-G (64x64, rtol 1e-9)", flush=True)
     runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et])
             for et in ("q", "t")]
 
     print("phase 4: scale (1024x1024 tri)", flush=True)
     runs.append(solve_phase(gates, "t", 1024, reps=2, golden=KIRCHHOFF, gate_rel=1e-3))
+
+    print("phase 5: scale path, class operator (1024x1024 tri, solve_df_refined)", flush=True)
+    class_runs = [class_solve_phase(gates, "t", 1024)]
+    class_runs += [class_solve_phase(gates, et, 64, golden=GOLDEN[et], gate_rel=1e-4, steady=False)
+                   for et in ("q", "t")]
 
     entries = []
     for dtype, meta in KERNELS.items():
@@ -370,9 +636,31 @@ def main() -> int:
                          for r in mine],
         })
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
+    for dtype, meta in CLASS_KERNELS.items():
+        form = "f64" if dtype == torch.float64 else "f32"
+        mine = [r for r in ckern if r["dtype"] == str(dtype)[6:]]
+        at = [r for r in mine if r["shape"] == "t1024" and r["form"] == form][0]
+        key = "class_f64" if dtype == torch.float64 else "class_f32"
+        entries.append({
+            "name": meta["name"], "route": "cuda", "source": CLASS_SOURCE, "replaces": meta["replaces"],
+            "launches": sum(r["launches"][key] for r in class_runs),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_rel_err": max(r["rel_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "at": f"{at['shape']} K={at['k']} Npad={at['npad']} {at['form']}",
+            "by_shape": [{k: r[k] for k in ("shape", "form", "ms", "plain_ms", "bound_ms", "library_ms")}
+                         for r in mine],
+        })
+        gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
+    for entry in entries[:2]:  # the scale path's coarse levels run stencil_spmv<float>
+        key = "spmv_f32" if "float" in entry["name"] else "spmv_f64"
+        entry["launches"] += sum(r["launches"][key] for r in class_runs)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "kernels": kern, "solves": runs}, indent=1))
+        {"card": smi, "build_s": build_s, "longdouble_eps": float(np.finfo(np.longdouble).eps),
+         "kernels": kern, "class_kernels": ckern, "solves": runs, "class_solves": class_runs},
+        indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)
         for what in gates.failed:

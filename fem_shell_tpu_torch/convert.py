@@ -4,7 +4,8 @@ The functions take the JAX package's objects (or anything with the same
 fields) and read every array through ``numpy.asarray``, so this module —
 like the whole port — imports nothing of JAX. With them a test feeds the
 same mesh, material, assembled operator and multigrid levels to both
-packages.
+packages, and the same exact-stencil tables and class operator, so the
+kernel-and-plain parity stands apart from the longdouble table build.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.materials import Material
 from fem_shell_tpu_torch.mesh import ShellMesh
 from fem_shell_tpu_torch.mg import _Level
+from fem_shell_tpu_torch.ops.class_matvec import ClassParts, class_parts_of
+from fem_shell_tpu_torch.ops.exact_stencil import ExactStencil
 
 
 def mesh_from_jax(mesh) -> ShellMesh:
@@ -49,7 +52,8 @@ def level_from_jax(lvl, device=None) -> _Level:
 
     Carries ``values`` ([36, K, Npad], or flat [36K, Npad], which is
     reshaped), ``offsets``, ``free_t``, ``inv_diag``, ``nyp``, ``nxp``,
-    ``npad``, ``omega``, ``lam``, ``chol`` and ``chol_scale``. A tile-major
+    ``npad``, ``omega``, ``lam``, ``chol``, ``chol_scale`` and the class
+    operator ``cparts``. A tile-major
     (4-D) Pallas value layout is a TPU artefact and is refused.
     """
     dev = resolve_device(device)
@@ -72,9 +76,40 @@ def level_from_jax(lvl, device=None) -> _Level:
         chol=_tensor(lvl.chol, dev),
         chol_scale=_tensor(lvl.chol_scale, dev),
         lam=_tensor(lvl.lam, dev),
+        cparts=None if getattr(lvl, "cparts", None) is None else class_parts_from_jax(lvl.cparts, dev),
     )
 
 
 def levels_from_jax(levels: Iterable, device=None) -> List[_Level]:
     """A whole JAX-package level stack (finest first)."""
     return [level_from_jax(lvl, device=device) for lvl in levels]
+
+
+def exact_stencil_from_jax(st) -> ExactStencil:
+    """A JAX-package ``ExactStencil`` (triple-f32 row-class tables) as the
+    port's."""
+    return ExactStencil(
+        offsets=tuple(int(o) for o in st.offsets),
+        offs2d=tuple((int(dy), int(dx)) for dy, dx in st.offs2d),
+        t0=np.array(np.asarray(st.t0), np.float32),
+        t1=np.array(np.asarray(st.t1), np.float32),
+        t2=np.array(np.asarray(st.t2), np.float32),
+        cy_idx=np.array(np.asarray(st.cy_idx), np.int32),
+        cx_idx=np.array(np.asarray(st.cx_idx), np.int32),
+        nyp=int(st.nyp),
+        nxp=int(st.nxp),
+    )
+
+
+def class_parts_from_jax(cp, device=None) -> ClassParts:
+    """A JAX-package ``ClassParts`` as the port's: the f32 hi and e tables
+    as they are, the f64 operator as fl64(hi + lo) of its (hi, lo)
+    tables."""
+    def a(v):
+        return np.asarray(v, np.float32)
+
+    bands = [(a(h), a(l), a(e)) for h, l, e in (
+        (cp.bt_h, cp.bt_l, cp.bt_e), (cp.bb_h, cp.bb_l, cp.bb_e),
+        (cp.bl_h, cp.bl_l, cp.bl_e), (cp.br_h, cp.br_l, cp.br_e))]
+    return class_parts_of(a(cp.ih), a(cp.il), a(cp.i2), bands, cp.offs2d, cp.nyp, cp.nxp,
+                          cp.npad, resolve_device(device))

@@ -12,18 +12,36 @@ port of the fused core of ``fem_shell_tpu/mg.py``.
 - the coarsest level is solved with a Cholesky factor of the diagonally
   scaled dense operator.
 
-``MultigridShellSystem(mesh, material).solve_fused(forces)`` assembles
-every level in f64, builds the preconditioner and runs f64 PCG over the
-fine operator, preconditioned by the f32 V-cycle. Every matvec goes
-through ``ops/stencil_spmv.stencil_spmv``: f64 for the outer CG, f32 in
-the V-cycle.
+Two configurations are ported:
+
+- ``MultigridShellSystem(mesh, material).solve_fused(forces)`` assembles
+  every level in f64, builds the preconditioner and runs f64 PCG over the
+  fine operator, preconditioned by the f32 V-cycle. Every matvec goes
+  through ``ops/stencil_spmv.stencil_spmv``: f64 for the outer CG, f32 in
+  the V-cycle.
+- ``MultigridShellSystem(mesh, material, dtype=torch.float32,
+  df_operator=True, smoother="chebyshev")`` builds its levels in the
+  constructor (the scale configuration): on a uniform grid the fine
+  level is the matrix-free class-table operator (ops/class_matvec.py;
+  no fine operator is assembled or stored), coarse levels are assembled
+  in f64 and kept in f32. ``solve_df`` runs f64 PCG over the fine
+  operator, ``solve_df_refined`` adds iterative refinement against the
+  longdouble class tables; ``stage_forces`` / ``return_device`` /
+  ``fetch_solution`` keep the fields on the device, and ``reassemble``
+  rebuilds every level. The class operator runs through
+  ``ops/class_stencil.class_stencil`` (f64 for the CG and the residual,
+  f32 with the fused smoother epilogue in the V-cycle); coarse levels
+  through ``stencil_spmv`` in f32. With ``class_operator=False``, or on
+  a non-uniform grid, the fine level is the materialized f64 operator
+  (``stencil_spmv`` in f64) and ``solve_df_refined`` is not ported.
 
 On the TPU the JAX package runs the outer CG in two-float32 ("df")
 arithmetic because its f64 is emulated; on a GPU f64 is native, so the
-port's fused solve is the JAX package's ``arith="f64"`` program.
-Galerkin coarse operators (curved shells), W/K cycles, the df operator
-and cycle, the class-table operator, and the ``solve``/``solve_df``/
-``solve_df_refined`` entry points are not ported yet (ROADMAP.md).
+port's CG is f64 wherever the JAX package's is df. Galerkin coarse
+operators (curved shells), W/K cycles, the df-valued cycle, the
+f64-levels ``solve`` path (``assemble=True`` without ``df_operator``),
+the refinement of the materialized pair, and the level-0 class operator
+on the coarsest level are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -39,6 +57,14 @@ from fem_shell_tpu_torch.large import LargeShellSystem
 from fem_shell_tpu_torch.materials import Material
 from fem_shell_tpu_torch.mesh import ShellMesh, XDA_QUAD4, XDA_TRI3
 from fem_shell_tpu_torch.meshgen import MeshGenParams, generate
+from fem_shell_tpu_torch.ops.class_matvec import (
+    ClassParts,
+    build_class_parts,
+    class_ecorr,
+    class_matvec_f32,
+    class_matvec_f64,
+)
+from fem_shell_tpu_torch.ops.exact_stencil import build_exact_stencil
 from fem_shell_tpu_torch.ops.soa import _offsets_of, soa_diagonal
 from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
 from fem_shell_tpu_torch.solver import pcg
@@ -133,6 +159,7 @@ class _Level:
     chol: Optional[torch.Tensor] = None  # coarsest: Cholesky of scaled dense
     chol_scale: Optional[torch.Tensor] = None  # d^-1/2 for the scaled factor
     lam: Optional[torch.Tensor] = None  # lambda_max(D^-1 A) estimate (0-d)
+    cparts: Optional[ClassParts] = None  # matrix-free class operator (values None)
 
 
 def _to_grid(x, lvl: _Level):
@@ -198,30 +225,48 @@ class MultigridShellSystem:
         coarse_max: int = 8,
         chunk: int = 16384,
         df_operator: bool = False,
-        assemble: bool = False,
+        assemble: Optional[bool] = None,
         smoother: str = "jacobi",
+        class_operator: Optional[bool] = None,
         coarse_op: Optional[str] = None,
         cycle: Optional[str] = None,
         device=None,
     ):
-        """Levels are built lazily: ``solve_fused`` assembles them on every
-        call (``assemble=False``, the JAX package's fused configuration).
-        ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host.
-        Like the JAX package's fused path, solve_fused damps each level's
-        Jacobi smoother with omega = 4/(3 lambda_max)."""
+        """Without ``df_operator`` (dtype float64) levels are built lazily:
+        ``solve_fused`` assembles them on every call, the JAX package's
+        fused configuration. ``df_operator=True`` (dtype float32, the f32
+        V-cycle levels beside the f64 CG) builds every level here;
+        ``class_operator`` picks its fine level: None = the class operator
+        where ``build_exact_stencil`` accepts the mesh, else the
+        materialized f64 operator; True = require the class operator
+        (raises on non-uniform grids); False = the materialized operator.
+        ``assemble`` defaults to ``df_operator``: the JAX package's default
+        (assemble=True) for the scale configuration, and the fused path
+        otherwise. ``device`` defaults to CUDA; pass ``"cpu"`` to run on
+        the host. Each level's smoother is damped with
+        omega = 4/(3 lambda_max)."""
         if isinstance(mesh, MeshGenParams):
             mesh, _, _ = generate(mesh)
-        if dtype != torch.float64:
-            raise NotImplementedError(
-                "solve_fused assembles levels in f64: construct "
-                "MultigridShellSystem(..., dtype=torch.float64)"
-            )
+        if assemble is None:
+            assemble = df_operator
         if df_operator:
-            raise NotImplementedError(f"df_operator: {_ROADMAP}")
-        if assemble:
-            raise NotImplementedError(
-                f"assemble=True (the multi-dispatch solve path): {_ROADMAP}; use solve_fused"
-            )
+            if dtype != torch.float32:
+                raise ValueError(
+                    "df_operator=True keeps f32 V-cycle levels beside the f64 CG: "
+                    "construct MultigridShellSystem(..., dtype=torch.float32)"
+                )
+            if not assemble:
+                raise ValueError("df_operator=True builds its levels in the constructor")
+        else:
+            if dtype != torch.float64:
+                raise NotImplementedError(
+                    "solve_fused assembles levels in f64: construct "
+                    "MultigridShellSystem(..., dtype=torch.float64)"
+                )
+            if assemble:
+                raise NotImplementedError(
+                    f"assemble=True (the multi-dispatch solve path): {_ROADMAP}; use solve_fused"
+                )
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         if cycle not in (None, "V", "W", "K"):
@@ -231,6 +276,7 @@ class MultigridShellSystem:
         self.device = resolve_device(device)
         self.material = material
         self.dtype = dtype
+        self.df_operator = bool(df_operator)
         self.nu_smooth = nu_smooth
         self.smoother = smoother
         self.cheby_lo = 0.25
@@ -280,7 +326,7 @@ class MultigridShellSystem:
             sys_l = LargeShellSystem(
                 mesh_l,
                 material,
-                dtype=dtype,
+                dtype=torch.float64,
                 chunk=chunk if l == 0 else min(chunk, 4096),
                 dirichlet_mask=mg_.reshape(-1, 6),
                 device=self.device,
@@ -298,11 +344,102 @@ class MultigridShellSystem:
                 )
             )
         self._fine = self.levels[0]
+        self._fine_mesh = mesh
+        self._cdf: Optional[ClassParts] = None  # the fine class operator, if any
+        self._fine64: Optional[torch.Tensor] = None  # the materialized fine operator, if any
+        # None = try the class operator, True = it is required, False = pair
+        self._class_mode = class_operator if n_levels > 1 else False
+        if df_operator:
+            self._assemble_levels()
 
     # ------------------------------------------------------------------
+    def _assemble_levels(self):
+        """Build (or rebuild) every df_operator level: the fine class
+        operator, or the materialized f64 fine operator; coarse levels
+        assembled in f64 and kept in f32 with the diagonal of the f64
+        values (the JAX package's df-assembly hi part); per-level damping
+        from the power iteration; the coarsest level's factor. Each old
+        operator is released before its level is rebuilt."""
+        self._cdf = self._fine64 = None
+        for l, sys_l in enumerate(self._systems):
+            lvl = dataclasses.replace(self.levels[l], values=None, cparts=None)
+            self.levels[l] = lvl
+            free32 = sys_l.free_t.to(torch.float32)
+            cparts = None
+            if l == 0 and self._class_mode is not False:
+                # matrix-free fine level: exact-stencil class tables instead
+                # of a materialized operator (uniform grids only)
+                try:
+                    cparts, diag = self._build_class_level(self._fine_mesh, sys_l)
+                except ValueError:
+                    if self._class_mode:
+                        raise
+                    self._class_mode = False
+                else:
+                    self._class_mode = True
+            if cparts is not None:
+                lvl = dataclasses.replace(
+                    lvl, cparts=cparts, free_t=free32,
+                    inv_diag=torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)),
+                )
+            else:
+                v64 = sys_l.assemble()
+                d64 = soa_diagonal(v64, offsets=lvl.offsets)
+                if l == 0:
+                    self._fine64 = v64
+                lvl = dataclasses.replace(
+                    lvl, values=v64.to(torch.float32), free_t=free32,
+                    inv_diag=torch.where(d64 != 0, 1.0 / d64, torch.ones_like(d64)).to(torch.float32),
+                )
+                del v64
+            if l == self.n_levels - 1:
+                lvl = self._coarse_factor(lvl)
+            else:
+                lam = self._power_lambda(lvl)
+                lvl = dataclasses.replace(lvl, omega=torch.clamp(4.0 / (3.0 * lam), 0.2, 1.0), lam=lam)
+            self.levels[l] = lvl
+        self._fine = self.levels[0]
+        self._cdf = self._fine.cparts
+
+    def _build_class_level(self, mesh, sys_l):
+        """Host: exact-stencil tables -> the fine level's class operator
+        and its f32 diagonal, on the system's device (raises ValueError
+        off uniform grids)."""
+        self._exact_st = build_exact_stencil(mesh, self.material, sys_l.offsets, grid=self.grid)
+        return build_class_parts(self._exact_st, sys_l.pattern.n_pad, device=self.device)
+
+    def _coarse_factor(self, c: _Level) -> _Level:
+        """Coarsest-level factor of the df_operator hierarchy: f32
+        Cholesky of the diagonally scaled dense operator, with the JAX
+        package's eps cascade: if the factor fails, the scaled operator
+        (unit diagonal, so the shifts are relative) is shifted by 1e-5,
+        then 1e-3; a shift on a preconditioner-only coarse solve is
+        harmless. (solve_fused keeps its own unshifted factor.)"""
+        dense = _densify(c)
+        d = torch.diagonal(dense)
+        s = torch.where(d > 0, torch.rsqrt(d), torch.ones_like(d))
+        scaled = (dense * s[None, :] * s[:, None]).to(torch.float32)
+        eye = torch.eye(scaled.shape[0], dtype=torch.float32, device=scaled.device)
+        chol, info = torch.linalg.cholesky_ex(scaled)
+        for eps in (1e-5, 1e-3):
+            if int(info) == 0 and bool(torch.isfinite(chol).all()):
+                break
+            chol, info = torch.linalg.cholesky_ex(scaled + eps * eye)
+        return dataclasses.replace(c, chol=chol, chol_scale=s.to(torch.float32))
+
     def _mv(self, lvl: _Level, x):
-        """Level matvec: always the stencil block-SpMV kernel."""
+        """Level matvec: the class-stencil kernel on the class level, the
+        stencil block-SpMV kernel on assembled levels."""
+        if lvl.cparts is not None:
+            return class_matvec_f32(lvl.cparts, x)
         return stencil_spmv(lvl.values, x, lvl.offsets)
+
+    def _wresid(self, lvl: _Level, x, b, w):
+        """w * (b - A x), the smoother's correction: one fused kernel pass
+        on the class level."""
+        if lvl.cparts is not None:
+            return class_matvec_f32(lvl.cparts, x, w=w, b=b)
+        return w * (b - self._mv(lvl, x))
 
     def _power_lambda(self, lvl: _Level):
         """lambda_max(D^-1 A) UPPER estimate for one level (0-d tensor):
@@ -334,9 +471,9 @@ class MultigridShellSystem:
     def _smooth(self, lvl: _Level, x, b, sweeps):
         if self.smoother == "chebyshev" and lvl.lam is not None:
             return self._smooth_cheby(lvl, x, b, sweeps)
+        w = lvl.omega * lvl.inv_diag
         for _ in range(sweeps):
-            r = b - self._mv(lvl, x)
-            x = x + lvl.omega * lvl.inv_diag * r
+            x = x + self._wresid(lvl, x, b, w)
         return x
 
     def _smooth_cheby(self, lvl: _Level, x, b, deg):
@@ -349,12 +486,12 @@ class MultigridShellSystem:
         delta = 0.5 * (lam - lmin)
         sigma = theta / delta
         rho = 1.0 / sigma
-        z = lvl.inv_diag * (b - self._mv(lvl, x))
+        z = self._wresid(lvl, x, b, lvl.inv_diag)
         p = z / theta
         x = x + p
         for _ in range(deg - 1):
             rho_new = 1.0 / (2.0 * sigma - rho)
-            z = lvl.inv_diag * (b - self._mv(lvl, x))
+            z = self._wresid(lvl, x, b, lvl.inv_diag)
             p = (rho_new * rho) * p + (2.0 * rho_new / delta) * z
             x = x + p
             rho = rho_new
@@ -448,6 +585,9 @@ class MultigridShellSystem:
                 "arith='df' (two-float32 CG) exists because TPU f64 is emulated; "
                 "on this device native f64 replaces it: use arith='f64'"
             )
+        if self.df_operator:
+            raise ValueError("solve_fused assembles levels in f64: construct "
+                             "MultigridShellSystem(..., dtype=torch.float64, assemble=False)")
         lvl = self._fine
         n = lvl.nyp * lvl.nxp
         f = torch.as_tensor(forces, dtype=torch.float64, device=self.device)
@@ -463,11 +603,135 @@ class MultigridShellSystem:
     def solve(self, forces, rtol: float = 1e-10, maxiter: int = 2000):
         raise NotImplementedError(f"MultigridShellSystem.solve: {_ROADMAP}; use solve_fused")
 
-    def solve_df(self, forces, rtol: float = 1e-9, maxiter: int = 2000):
-        raise NotImplementedError(f"MultigridShellSystem.solve_df: {_ROADMAP}")
+    # ------------------------------------------------------------------
+    # df_operator solves: f64 PCG over the fine operator (the JAX
+    # package's df CG, in native f64), preconditioned by the f32 V-cycle
+    def _prec(self, r):
+        return self._vcycle(self.levels, 0, r.to(torch.float32)).to(torch.float64)
 
-    def solve_df_refined(self, forces, rtol: float = 1e-9):
-        raise NotImplementedError(f"MultigridShellSystem.solve_df_refined: {_ROADMAP}")
+    def _inner_solve(self, b, rtol: float, maxiter: int):
+        """MG-preconditioned f64 PCG on A x = b (the initial solve and every
+        refinement correction): the class operator, or the materialized
+        f64 fine operator. Returns (x [6, Npad] f64, iters, residual)."""
+        if self._cdf is not None:
+            cp = self._cdf
+
+            def mv(x):
+                return class_matvec_f64(cp, x)
+        else:
+            fine64, offsets = self._fine64, self.levels[0].offsets
+
+            def mv(x):
+                return stencil_spmv(fine64, x, offsets)
+
+        res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=self._prec)
+        return res.x, res.iters, res.residual
+
+    def _refine_residual(self, x, b):
+        """True residual r = b - A_df x - E x of the class path and its
+        relative norm: A_df in f64, E on x rounded to f32 (as the JAX
+        package evaluates it)."""
+        cp = self._cdf
+        r = b - class_matvec_f64(cp, x)
+        r = r - class_ecorr(cp, x.to(torch.float32)).to(torch.float64)
+        return r, torch.sqrt(torch.sum(r * r)) / torch.sqrt(torch.sum(b * b))
+
+    def stage_forces(self, forces):
+        """Upload a host [n, 6] force field once; returns the [6, npad] f64
+        device tensor that solve_df / solve_df_refined accept in place of
+        host forces."""
+        fine = self._fine
+        n = fine.nyp * fine.nxp
+        f = torch.zeros((6, fine.npad), dtype=torch.float64, device=self.device)
+        f[:, :n] = torch.as_tensor(forces, dtype=torch.float64).to(self.device).T
+        return f
+
+    def _staged_forces(self, forces):
+        """Pass a staged [6, npad] tensor through; stage anything else."""
+        if isinstance(forces, torch.Tensor) and tuple(forces.shape) == (6, self._fine.npad):
+            return forces.to(self.device, torch.float64)
+        return self.stage_forces(forces)
+
+    def fetch_solution(self, x_t):
+        """Host (numpy) [n, 6] copy of a device-resident [6, npad] solution."""
+        fine = self._fine
+        return x_t[:, : fine.nyp * fine.nxp].T.contiguous().cpu().numpy()
+
+    def _out(self, x, return_device: bool):
+        if return_device:
+            return x
+        fine = self._fine
+        return x[:, : fine.nyp * fine.nxp].T.contiguous()
+
+    def solve_df(self, forces, rtol: float = 1e-9, maxiter: int = 2000,
+                 return_device: bool = False):
+        """f64 PCG to ``rtol`` over the fine operator (df_operator=True).
+        ``forces`` is host [n, 6] or a staged [6, npad] tensor. Returns the
+        displacements as an f64 tensor [n_nodes, 6] on the device, or with
+        ``return_device`` the [6, npad] solution vector; ``last_iters`` and
+        ``last_residual`` hold the CG count and relative residual."""
+        if not self.df_operator:
+            raise NotImplementedError(
+                f"solve_df over f64-assembled levels (df_operator=False): {_ROADMAP}")
+        b = self._staged_forces(forces) * self._systems[0].free_t
+        x, it, res = self._inner_solve(b, rtol, maxiter)
+        self.last_iters = int(it)
+        self.last_residual = float(res)
+        return self._out(x, return_device)
+
+    def solve_df_refined(self, forces, rtol: float = 1e-9, maxiter: int = 600,
+                         n_refine: int = 6, inner_rtol: float = 1e-5,
+                         inner_maxiter: int = 200, return_device: bool = False):
+        """MG-preconditioned f64 CG plus iterative refinement against the
+        longdouble class tables: drive the TRUE residual ||b - A x|| /
+        ||b|| (A = A_df + E) toward ``rtol``. Inner solves run to
+        ``inner_rtol``; the loop stops at ``rtol``, on a non-finite
+        residual, or when a pass improves the residual by less than 10x
+        (the representation floor of x). Native f64 puts that floor at
+        ~kappa * eps53 instead of the JAX package's df eps49, so the
+        history runs longer and lower. Sets ``last_iters`` (all inner
+        iterations), ``last_residual``, ``refine_history`` (true residual
+        per pass) and ``refine_inner_iters`` (iterations per inner solve).
+        Returns as ``solve_df``."""
+        if not self.df_operator:
+            raise ValueError("solve_df_refined requires df_operator=True")
+        if self._cdf is None:
+            raise NotImplementedError(
+                "solve_df_refined on the materialized fine operator (class_operator=False or "
+                "a non-uniform grid) needs the class-consistent pair and the compensated "
+                "residual kernel: ROADMAP.md Queue 2 item 5")
+        b = self._staged_forces(forces) * self._systems[0].free_t
+        x, it0, _ = self._inner_solve(b, inner_rtol, maxiter)
+        inner = [int(it0)]
+        hist = []
+        for _ in range(n_refine):
+            r, rn = self._refine_residual(x, b)
+            rn = float(rn)
+            hist.append(rn)
+            if rn < rtol or not np.isfinite(rn):
+                break
+            # a healthy pass with inner_rtol=1e-5 contracts the true
+            # residual by orders of magnitude; under 10x is the floor
+            if len(hist) > 1 and rn > 0.1 * hist[-2]:
+                break
+            d, itk, _ = self._inner_solve(r, inner_rtol, inner_maxiter)
+            x = x + d
+            inner.append(int(itk))
+        self.last_iters = sum(inner)
+        self.last_residual = hist[-1] if hist else float("nan")
+        self.refine_history = hist
+        self.refine_inner_iters = inner
+        return self._out(x, return_device)
+
+    def reassemble(self):
+        """Rebuild every level's operator (df_operator=True): the class
+        tables from the mesh on the class level, f64 assembly elsewhere,
+        then the damping and the coarsest factor. A coupled FSI loop
+        calls it when the geometry changes; benchmarks time it with the
+        solve."""
+        if not self.df_operator:
+            raise NotImplementedError(f"reassemble without df_operator=True: {_ROADMAP}")
+        self._assemble_levels()
 
 
 def _densify(lvl: _Level) -> torch.Tensor:

@@ -26,6 +26,17 @@ from fem_shell_tpu_torch.convert import levels_from_jax, material_from_jax, mesh
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny tensors: the test workers share
+    the host's cores, and oversubscribed torch threads slow the solves
+    here by over an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mesh(et, n):
     p = JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
     return jgenerate(p)
@@ -136,6 +147,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmg.MultigridShellSystem(mesh, mat, cycle="K", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmg.MultigridShellSystem(mesh, mat, assemble=True, device="cpu")
+    with pytest.raises(ValueError, match="float32"):
         tmg.MultigridShellSystem(mesh, mat, df_operator=True, device="cpu")
     tsys = tmg.MultigridShellSystem(mesh, mat, device="cpu")
     with pytest.raises(ValueError, match="native f64"):

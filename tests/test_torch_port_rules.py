@@ -30,7 +30,14 @@ mesh, rows, fac = generate(p)
 mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), device="cpu")
 u = mg.solve_fused(rows * fac)
 assert mg.last_residual < 1e-9
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+import torch
+p = MeshGenParams("t", 12, 12, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, False, "z")
+mesh, rows, fac = generate(p)
+mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), dtype=torch.float32, df_operator=True,
+                          smoother="chebyshev", coarse_max=4, device="cpu")
+mg.solve_df_refined(rows * fac)
+assert mg.levels[0].cparts is not None and mg.refine_history[-1] < 1e-9
+bad =sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "fem_shell_tpu" or m.startswith("fem_shell_tpu."))
 print("FOREIGN", bad)
 print("LOADED", sorted(_build._loaded))
@@ -38,7 +45,8 @@ print("LOADED", sorted(_build._loaded))
 
 
 def test_package_and_solve_import_no_jax():
-    # a fresh interpreter: this test process has imported JAX already
+    # a fresh interpreter (this test process has imported JAX already)
+    # runs the fused solve and the class-operator refined solve
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -64,6 +72,22 @@ def test_sources_import_no_jax():
             assert not _FOREIGN.search(mod), f"{f.relative_to(ROOT)} imports {mod}"
         src = f.read_text()
         assert "import_module(" not in src and "__import__(" not in src, f
+
+
+CUDA_SOURCES = ("stencil_spmv.cu", "class_stencil.cu")
+
+
+@pytest.mark.parametrize("name", CUDA_SOURCES)
+def test_cuda_sources_plain_c_and_noted(name):
+    """Each hand-written kernel source builds with plain nvcc (no PyTorch
+    headers), exports its entry points with a C interface for ctypes, and
+    its note names the TPU kernel it replaces and its bound."""
+    csrc = ROOT / "fem_shell_tpu_torch" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(CUDA_SOURCES)
+    src = (csrc / name).read_text()
+    assert "torch/" not in src and "ATen" not in src
+    assert 'extern "C"' in src
+    assert "fem_shell_tpu/ops/pallas_" in src and "Bound:" in src
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
