@@ -239,22 +239,28 @@ def kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
 
 def class_work(cp, dtype, fused):
     """(bytes, operations) one class_stencil launch must move and do on
-    this grid: x read once over the real nodes, y written over Npad, the
-    band tables read once, w and b read over Npad when fused; two
-    operations per accumulated (a, b, s) term whose neighbour lies in the
-    grid (interior, and band again on band nodes), one add per output to
-    join the two sums, and two more when fused."""
+    this grid: the x components any accumulated (a, b, s) term reads, once
+    over the real nodes; y written over Npad; on each band node, the band
+    entry of every accumulated term whose neighbour lies in the grid; w
+    and b read over Npad when fused. Two operations per accumulated term
+    whose neighbour lies in the grid (interior, and band again on band
+    nodes), one add per output to join the two sums, and two more when
+    fused."""
     nyp, nxp, npad = cp.nyp, cp.nxp, cp.npad
     n = nyp * nxp
     iy, ix = np.meshgrid(np.arange(nyp), np.arange(nxp), indexing="ij")
     band = (iy < 2) | (iy >= nyp - 2) | (ix < 2) | (ix >= nxp - 2)
-    terms = 0
+    terms = band_values = cols = 0
     for (dy, dx), m in zip(cp.offs2d, cp.masks):
         inside = (iy + dy >= 0) & (iy + dy < nyp) & (ix + dx >= 0) & (ix + dx < nxp)
-        terms += bin(int(m)).count("1") * int(inside.sum() + (inside & band).sum())
+        set_bits = bin(int(m)).count("1")
+        band_values += set_bits * int((inside & band).sum())
+        terms += set_bits * int(inside.sum())
+        cols |= int(m)
+    terms += band_values  # each band entry read is one more term
+    x_comps = sum(any((cols >> (a * 6 + b)) & 1 for a in range(6)) for b in range(6))
     size = torch.finfo(dtype).bits // 8
-    band_values = cp.hi.bands.numel()
-    nbytes = size * (6 * n + 6 * npad + band_values + (12 * npad if fused else 0))
+    nbytes = size * (x_comps * n + 6 * npad + band_values + (12 * npad if fused else 0))
     ops = 2 * terms + 6 * n + (12 * npad if fused else 0)
     return nbytes, ops
 

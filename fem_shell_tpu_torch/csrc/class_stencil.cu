@@ -29,10 +29,11 @@
 // two-float32 (df) arithmetic: the double instance runs A_df = fl64(t0+t1).
 //
 // Bound: bytes. A launch must read x (6*Npad values), write y (6*Npad),
-// read the band tables (4 * 72*K*L values, O(boundary)) and, fused, w and
-// b (12*Npad more); it does about 2*|nzmask| operations per node (~250 at
-// K=9 for a flat shell). At 1024^2 in f64: ~100 MB of vectors, ~30 us at
-// 3.35 TB/s, against ~6 us of f64 arithmetic.
+// read the band entries of the accumulated (a, b, s) triples on the band
+// nodes (O(boundary)) and, fused, w and b (12*Npad more); it does two
+// operations per accumulated triple per node (~250 at K=9 for a flat
+// shell). At 1024^2 in f64: ~100 MB of vectors, ~30 us at 3.35 TB/s,
+// against ~6 us of f64 arithmetic.
 //
 // Design: one thread per node on a 1-D grid over Npad, so the lanes of a
 // warp take consecutive ix and every x load is a coalesced row segment;

@@ -55,10 +55,10 @@ from fem_shell_tpu_torch.ops.exact_stencil import _P, ExactStencil
 class ClassParts:
     """The class-table operator on one device: three coefficient sets
     (``hi`` = t0 in f32, ``a64`` = fl64(t0 + t1), ``e`` = t2 in f32), the
-    grid, and the structural masks. ``nzmask`` is the JAX package's:
-    static (a, b, s) triples with a nonzero interior scalar in any of
-    t0/t1/t2. ``masks`` [K] uint64 (host) is what the kernel skips by:
-    nzmask plus every triple with a nonzero band delta."""
+    grid, and the structural mask the kernel skips by: ``masks`` [K]
+    uint64 (host), bit a*6+b of masks[s] set where (a, b, s) has a nonzero
+    interior scalar in any of t0/t1/t2 (the JAX package's ``nzmask``) or
+    a nonzero band delta."""
 
     hi: ClassTable
     a64: ClassTable
@@ -67,7 +67,6 @@ class ClassParts:
     nyp: int
     nxp: int
     npad: int
-    nzmask: Tuple[Tuple[int, int, int], ...]
     masks: np.ndarray
 
 
@@ -126,7 +125,6 @@ def class_parts_of(ih, il, i2, bands, offs2d, nyp: int, nxp: int, npad: int, dev
     [K, 6, 6] and ``bands`` = four (h, l, e) triples of [K, 6, 6, 2, L]
     delta tables (top, bottom, left, right)."""
     nz = (ih != 0) | (il != 0) | (i2 != 0)  # [K, 6, 6]
-    nzmask = tuple(sorted((int(a), int(b), int(s)) for s, a, b in zip(*np.nonzero(nz))))
     for band in bands:
         for part in band:
             nz = nz | (np.asarray(part) != 0).any(axis=(3, 4))
@@ -144,7 +142,6 @@ def class_parts_of(ih, il, i2, bands, offs2d, nyp: int, nxp: int, npad: int, dev
         nyp=int(nyp),
         nxp=int(nxp),
         npad=int(npad),
-        nzmask=nzmask,
         masks=masks,
     )
 

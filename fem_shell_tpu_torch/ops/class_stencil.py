@@ -59,15 +59,6 @@ class ClassTable:
     nxp: int
     coef: np.ndarray
 
-    def _band(self, i):
-        lo = (0, self.nxp, 2 * self.nxp, 2 * self.nxp + self.nyp, 2 * (self.nxp + self.nyp))
-        return self.bands[..., lo[i] : lo[i + 1]]
-
-    top = property(lambda self: self._band(0))
-    bottom = property(lambda self: self._band(1))
-    left = property(lambda self: self._band(2))
-    right = property(lambda self: self._band(3))
-
     @classmethod
     def from_numpy(cls, interior, top, bottom, left, right, device):
         """From host arrays: interior [K, 6, 6], top/bottom [K, 6, 6, 2,
