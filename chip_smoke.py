@@ -27,6 +27,19 @@ before the last line:
    whichever is larger) and one torch.nn.functional.conv2d (6->6, 3x3,
    zero padding: the interior term only) as a yardstick the port never
    calls.
+2c. The pair path's kernels against their plain versions on the card, on
+   class-consistent operators built by the port (64x64 quad and tri,
+   1024x1024 tri): stencil_spmv_sym<double> (the symmetric-storage CG
+   matvec, gate 1e-13 of max|y|) and stencil_resid_dd<double> (the
+   compensated residual, gate 1e-15 of the term scale, max over rows of
+   sum |a x|). At 64x64 the full pair residual (kernel minus the E term)
+   of a smooth field against a numpy-longdouble oracle from the port's
+   ExactStencil must err at most 1e-2 of the plain-f64 residual's error:
+   compensation happens on the card. Times with CUDA events: kernel,
+   plain version, bound (bytes over the datasheet bandwidth, or operations
+   over the f64 vector peak) and one torch.sparse BSR product of the full
+   operator (for the residual: the product and b - y, uncompensated) as a
+   yardstick the port never calls.
 3. Test-G, quad and tri at 64x64 (bench.py parameters, rtol 1e-9,
    maxiter 400) through MultigridShellSystem(...).solve_fused: centre
    deflection against the thesis goldens (relative error < 1e-4),
@@ -47,6 +60,15 @@ before the last line:
    stencil_spmv<double> launch (no fine operator exists). Then the class
    path on the Test-G plates, 64x64 quad and tri, against the goldens
    (relative 1e-4).
+6. The pair path: phase 5's sequence with class_operator=False at
+   1024x1024 tri (the materialized fine operator; solve_df_refined swaps
+   in the class-consistent one). Gates: centre within 1e-3 of the
+   Kirchhoff value, final true residual <= 9.7e-4, a finite history,
+   stencil_spmv_sym<double> launches >= the CG iterations,
+   stencil_resid_dd<double> and class_stencil<float> (the E term)
+   launches equal to the refinement passes, and no stencil_spmv<double>
+   launch in the steady pair. Then the pair path on the 64x64 Test-G
+   plates against the goldens (relative 1e-4).
 
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
@@ -111,6 +133,14 @@ CLASS_KERNELS = {
     },
 }
 CLASS_SOURCE = "fem_shell_tpu_torch/csrc/class_stencil.cu"
+PAIR_KERNELS = {
+    "resid": {"name": "stencil_resid_dd<double>", "replaces": "fem_shell_tpu/ops/pallas_spmv_df.py:102",
+              "source": "fem_shell_tpu_torch/csrc/stencil_resid.cu", "count": "resid"},
+    "sym": {"name": "stencil_spmv_sym<double>", "replaces": "fem_shell_tpu/ops/pallas_spmv_df.py:402",
+            "source": "fem_shell_tpu_torch/csrc/stencil_spmv_sym.cu", "count": "sym"},
+}
+SYM_GATE = 1e-13  # of max|y|: f64, another summation order than the plain version
+RESID_GATE = 1e-15  # of the term scale: both sum in double-double
 # the JAX package's refined 1024^2 tri solve reached this true residual,
 # its df representation floor at that size (BENCH_r05.json)
 JAX_SCALE_FLOOR = 9.7e-4
@@ -344,6 +374,135 @@ def class_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
     return rows
 
 
+def smooth_field(mesh, nyp, nxp, npad):
+    """A plate-deflection-like field [6, npad] (zero on the constrained
+    DOFs and the padding), whose A x cancels as a solution's does."""
+    iy, ix = np.meshgrid(np.arange(nyp), np.arange(nxp), indexing="ij")
+    free = ~mesh.dirichlet_mask()
+    x = np.zeros((6, npad))
+    for c in range(6):
+        x[c, : nyp * nxp] = ((c + 1) * np.sin(np.pi * ix / (nxp - 1) + 0.3 * c)
+                             * np.sin(np.pi * iy / (nyp - 1))).reshape(-1) * free[:, c]
+    return x
+
+
+def pair_work(offs, npad):
+    """(bytes, operations) of one launch per pair kernel: the slots whose
+    target lies inside the vector, read once (for the symmetric form the
+    off >= 0 half, whose direct and transposed reads cover the same
+    entries), and the vectors (sym: x, y; resid: x, b, r). sym: 2
+    operations per direct and per transposed term; resid: 11 per term
+    (multiply, fma, six adds of TwoSum, two into the error sum) and one
+    add per output."""
+    slots = sum(npad - abs(o) for o in offs)
+    up = sum(npad - o for o in offs if o >= 0)
+    trans = sum(npad - o for o in offs if o > 0)
+    return {"sym": ((36 * up + 12 * npad) * 8, 72 * (up + trans)),
+            "resid": ((36 * slots + 18 * npad) * 8, 11 * 36 * slots + 6 * npad)}
+
+
+def pair_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
+    """The symmetric-storage SpMV and the compensated residual against their
+    plain versions on class-consistent operators built by the port; at 64x64
+    the full pair residual against a longdouble oracle. One record per
+    (shape, kernel)."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.class_matvec import build_pair_ecorr, pair_ecorr
+    from fem_shell_tpu_torch.ops.exact_stencil import (
+        build_exact_stencil, class_flat_tables, class_pair_flat, exact_matvec_ld)
+    from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd, stencil_resid_dd_plain
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_plain
+    from fem_shell_tpu_torch.ops.stencil_spmv_sym import (
+        prepare_sym_values, stencil_spmv_sym, stencil_spmv_sym_plain)
+
+    mat = Material(0.3, 1e7, 0.5)
+    rows = []
+    for et, n in shapes:
+        mesh, _, _ = plate(et, n)
+        sys_ = LargeShellSystem(mesh, mat, device="cpu")  # pattern and offsets only
+        offs = tuple(int(o) for o in sys_.offsets)
+        npad = sys_.pattern.n_pad
+        st = build_exact_stencil(mesh, mat, offs)
+        tfl0, tfl1, _, cls = class_flat_tables(st)
+        a64, hi = class_pair_flat(tfl0, tfl1, cls, npad, device=device)
+        del hi
+        up = prepare_sym_values(a64, offs)
+        nn, k = st.nyp * st.nxp, len(offs)
+        rng = np.random.default_rng(n)
+        x = torch.zeros((6, npad), dtype=torch.float64)
+        x[:, :nn] = torch.from_numpy(rng.normal(size=(6, nn)))
+        x = x.to(device)
+        b = torch.from_numpy(rng.normal(size=(6, npad))).to(device)
+        tag = f"{et}{n} K={k} Npad={npad}"
+        extra = {}
+        if n <= 64:
+            # compensation on the card: the full pair residual of a smooth
+            # field against the longdouble oracle, dd against plain f64
+            ec = build_pair_ecorr(st, device=device)
+            xs = smooth_field(mesh, st.nyp, st.nxp, npad)
+            y_ld = exact_matvec_ld(st, xs[:, :nn])
+            bs = np.zeros((6, npad))
+            bs[:, :nn] = y_ld.astype(np.float64)
+            r_ld = bs[:, :nn].astype(np.longdouble) - y_ld
+            xt, bt = torch.from_numpy(xs).to(device), torch.from_numpy(bs).to(device)
+            ex = pair_ecorr(ec, xt.float()).double()
+            r_dd = (stencil_resid_dd(a64, xt, bt, offs) - ex).cpu().numpy()[:, :nn]
+            r_64 = (bt - stencil_spmv(a64, xt, offs) - ex).cpu().numpy()[:, :nn]
+            term_s = float(stencil_spmv_plain(a64.abs(), xt.abs(), offs).max())
+            err_dd = float(np.abs(r_dd.astype(np.longdouble) - r_ld).max())
+            err_64 = float(np.abs(r_64.astype(np.longdouble) - r_ld).max())
+            gates.check(0 < err_64 and err_dd <= 1e-2 * err_64,
+                        f"pair residual {tag}: dd err {err_dd / term_s:.2e} <= 1e-2 x f64 err "
+                        f"{err_64 / term_s:.2e} (of the term scale, longdouble oracle)")
+            extra = {"smooth_err_dd": err_dd / term_s, "smooth_err_f64": err_64 / term_s,
+                     "smooth_ratio": err_dd / err_64 if err_64 else None}
+            del ec, xt, bt, ex
+        term = float(stencil_spmv_plain(a64.abs(), x.abs(), offs).max())
+        with warnings.catch_warnings():  # BSR "beta" and invariant-check notices
+            warnings.simplefilter("ignore", UserWarning)
+            bsr = bsr_operator(a64, offs)
+        xa = x.T.reshape(-1, 1).contiguous()
+        ba = b.T.reshape(-1, 1).contiguous()
+        work = pair_work(offs, npad)
+        forms = (
+            ("sym", lambda: stencil_spmv_sym(up, x, offs), lambda: stencil_spmv_sym_plain(up, x, offs),
+             lambda: bsr @ xa, SYM_GATE, None),
+            ("resid", lambda: stencil_resid_dd(a64, x, b, offs),
+             lambda: stencil_resid_dd_plain(a64, x, b, offs), lambda: ba - bsr @ xa, RESID_GATE, term),
+        )
+        for form, kern, plain, lib, gate, scale in forms:
+            y, y_plain = kern(), plain()
+            torch.cuda.synchronize()
+            sc = float(y_plain.abs().max()) if scale is None else scale
+            err = float((y - y_plain).abs().max()) / sc
+            what = "max|y|" if scale is None else "term scale"
+            gates.check(err <= gate and bool(torch.isfinite(y).all()),
+                        f"{form} kernel {tag}: max|y-y_plain|/{what} = {err:.3e} <= {gate:.0e}")
+            r = reps[n]
+            ms = cuda_ms(kern, r)
+            plain_ms = cuda_ms(plain, max(2, r // 10))
+            library_ms = cuda_ms(lib, max(2, r // 2))
+            nbytes, ops = work[form]
+            t_bytes, t_ops = nbytes / bandwidth, ops / peaks[torch.float64]
+            rec = {
+                "shape": f"{et}{n}", "k": k, "npad": npad, "form": form,
+                "max_abs_err": float((y - y_plain).abs().max()), "rel_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "bytes": nbytes, "ops": ops,
+                "achieved_GBps": nbytes / ms / 1e6, **extra,
+            }
+            print(f"  {tag} {form}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) bsr_ms={library_ms:.4f} "
+                  f"rel_err={err:.2e} ({rec['achieved_GBps']:.0f} GB/s)", flush=True)
+            rows.append(rec)
+            del y, y_plain
+        del a64, up, bsr, xa, ba, x, b
+        torch.cuda.empty_cache()
+    return rows
+
+
 def device_profile(fn):
     """Kernel time by name over one call of ``fn`` (torch.profiler): the
     device's busy milliseconds (kernels of one stream do not overlap), the
@@ -371,12 +530,15 @@ def device_profile(fn):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    spmv = sum(r[1] for r in rows if "stencil_spmv_kernel" in r[0])
-    cls = sum(r[1] for r in rows if "class_stencil_kernel" in r[0])
+    def by(name):
+        return sum(r[1] for r in rows if name in r[0])
+
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-        "stencil_spmv_ms": spmv, "class_stencil_ms": cls,
+        "stencil_spmv_ms": by("stencil_spmv_kernel"), "class_stencil_ms": by("class_stencil_kernel"),
+        "stencil_spmv_sym_ms": by("stencil_spmv_sym_kernel"),
+        "stencil_resid_ms": by("stencil_resid_dd_kernel"),
         "top": [{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:8]],
     }
 
@@ -463,21 +625,27 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
 
 def reset_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
+    from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
     from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+    from fem_shell_tpu_torch.ops.stencil_spmv_sym import stencil_spmv_sym
 
     for counts in (stencil_spmv.launches, class_stencil.launches):
         for dt in counts:
             counts[dt] = 0
+    stencil_resid_dd.launches = stencil_spmv_sym.launches = 0
 
 
 def read_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
+    from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
     from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+    from fem_shell_tpu_torch.ops.stencil_spmv_sym import stencil_spmv_sym
 
     return {"spmv_f32": stencil_spmv.launches[torch.float32],
             "spmv_f64": stencil_spmv.launches[torch.float64],
             "class_f32": class_stencil.launches[torch.float32],
-            "class_f64": class_stencil.launches[torch.float64]}
+            "class_f64": class_stencil.launches[torch.float64],
+            "sym": stencil_spmv_sym.launches, "resid": stencil_resid_dd.launches}
 
 
 def class_launch_counts(mg):
@@ -492,25 +660,42 @@ def class_launch_counts(mg):
     return f64, f32
 
 
+def pair_launch_counts(mg):
+    """Launches of one pair-path reassemble() + solve_df_refined from the
+    code: the CG matvec = one per inner iteration (stencil_spmv_sym<double>
+    with symmetric storage, else stencil_spmv<double>); one compensated
+    residual and one E term (class_stencil<float>) per refinement pass;
+    stencil_spmv<float> on every non-coarsest level, 21 power steps and 7
+    per V-cycle application (one before each CG loop, one per
+    iteration)."""
+    inner, hist = mg.refine_inner_iters, mg.refine_history
+    cg, passes = sum(inner), len(hist)
+    return cg, passes, (mg.n_levels - 1) * (21 + 7 * (cg + len(inner)))
+
+
 def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e-3,
-                      steady=True):
+                      steady=True, pair=False):
     """The scale path of bench.py bench_scale: the df_operator system with
-    the class-table fine level, staged forces, solve_df_refined. With
+    the class-table fine level (or, with ``pair``, class_operator=False:
+    the materialized fine operator), staged forces, solve_df_refined. With
     ``steady`` the warm-up solve, two reassemble()+solve pairs (the second
     counted and reported) and a profiled solve follow bench_scale; without
-    it one solve runs, counted. No stencil_spmv<double> may launch."""
+    it one solve runs, counted. The class path may launch no
+    stencil_spmv<double>; the pair path none in its steady pair, where its
+    CG runs from symmetric storage."""
     from fem_shell_tpu_torch import Material, MultigridShellSystem
 
     mesh, rows, fac = plate(et, n)
     forces = rows * fac
-    tag = f"class {et}{n}"
+    tag = f"{'pair' if pair else 'class'} {et}{n}"
     ctr = mesh.n_nodes // 2
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), dtype=torch.float32, df_operator=True,
-                              smoother="chebyshev", device=device)
+                              smoother="chebyshev", device=device,
+                              **({"class_operator": False} if pair else {}))
     torch.cuda.synchronize()
     ctor_s = time.perf_counter() - t0
     f_dev = mg.stage_forces(forces)
@@ -540,7 +725,6 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     u = mg.fetch_solution(x_dev)
-    want64, want32 = class_launch_counts(mg)
     hist = list(mg.refine_history)
     err = abs(w - golden) / golden
     gates.check(isinstance(u, np.ndarray) and u.shape == (mesh.n_nodes, 6)
@@ -551,28 +735,49 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
     gates.check(err < gate_rel, f"{tag}: centre w {w:.7f} vs {golden}: rel err {err:.2e} < {gate_rel:.0e}")
     gates.check(hist[-1] <= JAX_SCALE_FLOOR,
                 f"{tag}: final true residual {hist[-1]:.3e} <= {JAX_SCALE_FLOOR:.1e}")
-    gates.check(launches["class_f64"] >= want64 and launches["class_f32"] >= want32,
-                f"{tag}: class launches f64 {launches['class_f64']} >= {want64}, "
-                f"f32 {launches['class_f32']} >= {want32}")
-    gates.check(launches["spmv_f64"] + spmv64_before == 0,
-                f"{tag}: stencil_spmv<double> launches {launches['spmv_f64'] + spmv64_before} == 0")
+    if pair:
+        cg, passes, want32 = pair_launch_counts(mg)
+        cg_key = "sym" if mg._fine_sym is not None else "spmv_f64"
+        expected = {"cg": cg, "passes": passes, "spmv_f32": want32, "cg_kernel": cg_key}
+        gates.check(launches[cg_key] >= cg and launches["spmv_f32"] >= want32,
+                    f"{tag}: CG launches ({cg_key}) {launches[cg_key]} >= {cg}, "
+                    f"stencil_spmv<float> {launches['spmv_f32']} >= {want32}")
+        gates.check(launches["resid"] == passes and launches["class_f32"] == passes
+                    and launches["class_f64"] == 0,
+                    f"{tag}: stencil_resid_dd {launches['resid']} and E-term class_stencil<float> "
+                    f"{launches['class_f32']} == {passes} passes, class_stencil<double> "
+                    f"{launches['class_f64']} == 0")
+        if steady:
+            gates.check(cg_key == "sym" and launches["spmv_f64"] == 0,
+                        f"{tag}: steady pair CG from symmetric storage, stencil_spmv<double> "
+                        f"launches {launches['spmv_f64']} == 0")
+    else:
+        want64, want32 = class_launch_counts(mg)
+        expected = {"class_f64": want64, "class_f32": want32}
+        gates.check(launches["class_f64"] >= want64 and launches["class_f32"] >= want32,
+                    f"{tag}: class launches f64 {launches['class_f64']} >= {want64}, "
+                    f"f32 {launches['class_f32']} >= {want32}")
+        gates.check(launches["spmv_f64"] + spmv64_before == 0,
+                    f"{tag}: stencil_spmv<double> launches {launches['spmv_f64'] + spmv64_before} == 0")
     prof = device_profile(lambda: mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)) \
         if steady else None
     rec = {
         "case": tag, "levels": mg.n_levels, "inner_iters": mg.last_iters,
         "inner_per_solve": list(mg.refine_inner_iters), "refine_history": hist,
         "true_residual": hist[-1], "center_w": w, "rel_err": err, **times,
-        "launches": launches, "expected_class_f64": want64, "expected_class_f32": want32,
-        "peak_mem_bytes": peak, "profile": prof,
+        "launches": launches, "launches_before_steady_spmv_f64": spmv64_before,
+        "expected": expected, "peak_mem_bytes": peak, "profile": prof,
     }
     print(f"  {tag}: levels={mg.n_levels} inner_iters={mg.last_iters} {mg.refine_inner_iters} "
           f"history={['%.3e' % h for h in hist]} w={w:.7f} rel_err={err:.2e} "
           f"{' '.join(f'{k}={v:.4f}' for k, v in times.items())} launches={launches} "
-          f"expected class f64/f32 {want64}/{want32} peak_mem={peak}", flush=True)
+          f"expected {expected} peak_mem={peak}", flush=True)
     if prof is not None:
         print(f"  {tag} profile: wall_ms={prof['wall_ms']:.1f} device_busy_ms={prof['device_busy_ms']:.1f} "
               f"idle_share={prof['idle_share']} class_stencil_ms={prof['class_stencil_ms']:.1f} "
-              f"stencil_spmv_ms={prof['stencil_spmv_ms']:.1f}", flush=True)
+              f"stencil_spmv_ms={prof['stencil_spmv_ms']:.1f} "
+              f"stencil_spmv_sym_ms={prof['stencil_spmv_sym_ms']:.1f} "
+              f"stencil_resid_ms={prof['stencil_resid_ms']:.1f}", flush=True)
         for row in prof["top"]:
             print(f"    {row['ms']:9.3f} ms {row['count']:6d}x {row['kernel']}", flush=True)
     return rec
@@ -613,6 +818,9 @@ def main() -> int:
     print("phase 2b: class-stencil kernel against its plain version", flush=True)
     ckern = class_kernel_phase(gates, shapes, {64: 200, 1024: 50}, bandwidth, peaks)
 
+    print("phase 2c: pair-path kernels against their plain versions", flush=True)
+    pkern = pair_kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
+
     print("phase 3: Test-G (64x64, rtol 1e-9)", flush=True)
     runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et])
             for et in ("q", "t")]
@@ -624,6 +832,11 @@ def main() -> int:
     class_runs = [class_solve_phase(gates, "t", 1024)]
     class_runs += [class_solve_phase(gates, et, 64, golden=GOLDEN[et], gate_rel=1e-4, steady=False)
                    for et in ("q", "t")]
+
+    print("phase 6: pair path, materialized operator (1024x1024 tri, solve_df_refined)", flush=True)
+    pair_runs = [class_solve_phase(gates, "t", 1024, pair=True)]
+    pair_runs += [class_solve_phase(gates, et, 64, golden=GOLDEN[et], gate_rel=1e-4, steady=False,
+                                    pair=True) for et in ("q", "t")]
 
     entries = []
     for dtype, meta in KERNELS.items():
@@ -649,7 +862,7 @@ def main() -> int:
         key = "class_f64" if dtype == torch.float64 else "class_f32"
         entries.append({
             "name": meta["name"], "route": "cuda", "source": CLASS_SOURCE, "replaces": meta["replaces"],
-            "launches": sum(r["launches"][key] for r in class_runs),
+            "launches": sum(r["launches"][key] for r in class_runs + pair_runs),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["rel_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -659,13 +872,29 @@ def main() -> int:
                          for r in mine],
         })
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
-    for entry in entries[:2]:  # the scale path's coarse levels run stencil_spmv<float>
+    for entry in entries[:2]:  # the scale and pair paths' assembled levels run stencil_spmv
         key = "spmv_f32" if "float" in entry["name"] else "spmv_f64"
-        entry["launches"] += sum(r["launches"][key] for r in class_runs)
+        entry["launches"] += sum(r["launches"][key] for r in class_runs + pair_runs)
+    for form, meta in PAIR_KERNELS.items():
+        mine = [r for r in pkern if r["form"] == form]
+        at = [r for r in mine if r["shape"] == "t1024"][0]
+        entries.append({
+            "name": meta["name"], "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
+            "launches": sum(r["launches"][meta["count"]] for r in pair_runs),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_rel_err": max(r["rel_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "at": f"{at['shape']} K={at['k']} Npad={at['npad']}",
+            "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                         for r in mine],
+        })
+        gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "build_s": build_s, "longdouble_eps": float(np.finfo(np.longdouble).eps),
-         "kernels": kern, "class_kernels": ckern, "solves": runs, "class_solves": class_runs},
+         "kernels": kern, "class_kernels": ckern, "pair_kernels": pkern, "solves": runs,
+         "class_solves": class_runs, "pair_solves": pair_runs},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

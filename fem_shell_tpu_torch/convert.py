@@ -80,6 +80,18 @@ def level_from_jax(lvl, device=None) -> _Level:
     )
 
 
+def df_pair_from_jax(pair, device=None) -> torch.Tensor:
+    """A JAX-package df operator pair (``hi``, ``lo``: flat [36K, Npad]
+    f32) as the port's f64 operator [36, K, Npad] = fl64(hi) + fl64(lo).
+    A tile-major (4-D) Pallas layout is a TPU artefact and is refused."""
+    hi, lo = np.asarray(pair.hi), np.asarray(pair.lo)
+    if hi.ndim != 2 or lo.shape != hi.shape or hi.shape[0] % 36:
+        raise ValueError(f"want a flat [36K, Npad] pair, got {hi.shape} / {lo.shape} "
+                         "(tile-major (TPU Pallas) layout: untile it first)")
+    v = hi.astype(np.float64) + lo.astype(np.float64)
+    return torch.from_numpy(v.reshape(36, hi.shape[0] // 36, hi.shape[1])).to(resolve_device(device))
+
+
 def levels_from_jax(levels: Iterable, device=None) -> List[_Level]:
     """A whole JAX-package level stack (finest first)."""
     return [level_from_jax(lvl, device=device) for lvl in levels]

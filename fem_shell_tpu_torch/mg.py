@@ -31,17 +31,24 @@ Two configurations are ported:
   rebuilds every level. The class operator runs through
   ``ops/class_stencil.class_stencil`` (f64 for the CG and the residual,
   f32 with the fused smoother epilogue in the V-cycle); coarse levels
-  through ``stencil_spmv`` in f32. With ``class_operator=False``, or on
-  a non-uniform grid, the fine level is the materialized f64 operator
-  (``stencil_spmv`` in f64) and ``solve_df_refined`` is not ported.
+  through ``stencil_spmv`` in f32.
+- With ``class_operator=False``, or on a non-uniform grid, the fine
+  level is the materialized f64 operator (the pair path). Its CG matvec
+  runs through ``ops/stencil_spmv_sym.stencil_spmv_sym`` from the
+  operator's upper half (``sym_spmv``; else ``stencil_spmv`` in f64).
+  ``solve_df_refined`` first swaps in the class-consistent operator
+  A64 = fl64(t0 + t1) generated from the longdouble class tables
+  (uniform grids only), so that the refinement residual is
+  ``ops/stencil_resid.stencil_resid_dd(A64, x, b)`` (compensated) minus
+  the f32 class-table term E x, E = A_true - A64.
 
 On the TPU the JAX package runs the outer CG in two-float32 ("df")
 arithmetic because its f64 is emulated; on a GPU f64 is native, so the
 port's CG is f64 wherever the JAX package's is df. Galerkin coarse
 operators (curved shells), W/K cycles, the df-valued cycle, the
 f64-levels ``solve`` path (``assemble=True`` without ``df_operator``),
-the refinement of the materialized pair, and the level-0 class operator
-on the coarsest level are not ported yet (ROADMAP.md).
+and the level-0 class operator on the coarsest level are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -60,13 +67,25 @@ from fem_shell_tpu_torch.meshgen import MeshGenParams, generate
 from fem_shell_tpu_torch.ops.class_matvec import (
     ClassParts,
     build_class_parts,
+    build_pair_ecorr,
     class_ecorr,
     class_matvec_f32,
     class_matvec_f64,
+    pair_ecorr,
 )
-from fem_shell_tpu_torch.ops.exact_stencil import build_exact_stencil
+from fem_shell_tpu_torch.ops.exact_stencil import (
+    build_exact_stencil,
+    class_flat_tables,
+    class_pair_flat,
+)
 from fem_shell_tpu_torch.ops.soa import _offsets_of, soa_diagonal
+from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
 from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+from fem_shell_tpu_torch.ops.stencil_spmv_sym import (
+    is_symmetric,
+    prepare_sym_values,
+    stencil_spmv_sym,
+)
 from fem_shell_tpu_torch.solver import pcg
 
 _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
@@ -230,6 +249,7 @@ class MultigridShellSystem:
         class_operator: Optional[bool] = None,
         coarse_op: Optional[str] = None,
         cycle: Optional[str] = None,
+        sym_spmv: Optional[bool] = None,
         device=None,
     ):
         """Without ``df_operator`` (dtype float64) levels are built lazily:
@@ -242,9 +262,11 @@ class MultigridShellSystem:
         (raises on non-uniform grids); False = the materialized operator.
         ``assemble`` defaults to ``df_operator``: the JAX package's default
         (assemble=True) for the scale configuration, and the fused path
-        otherwise. ``device`` defaults to CUDA; pass ``"cpu"`` to run on
-        the host. Each level's smoother is damped with
-        omega = 4/(3 lambda_max)."""
+        otherwise. ``sym_spmv`` keeps the materialized fine operator's
+        upper half for the CG matvec (symmetric storage); None = on from
+        65,536 elements (the JAX package's threshold), on any device.
+        ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host.
+        Each level's smoother is damped with omega = 4/(3 lambda_max)."""
         if isinstance(mesh, MeshGenParams):
             mesh, _, _ = generate(mesh)
         if assemble is None:
@@ -281,6 +303,8 @@ class MultigridShellSystem:
         self.smoother = smoother
         self.cheby_lo = 0.25
         self.cycle = "V"
+        big = len(mesh.tri) + len(mesh.quad) >= 65536
+        self.sym_spmv = big if sym_spmv is None else bool(sym_spmv)
 
         grid = detect_structured_grid(mesh)
         if grid is None:
@@ -347,6 +371,8 @@ class MultigridShellSystem:
         self._fine_mesh = mesh
         self._cdf: Optional[ClassParts] = None  # the fine class operator, if any
         self._fine64: Optional[torch.Tensor] = None  # the materialized fine operator, if any
+        self._fine_sym: Optional[torch.Tensor] = None  # its upper half, if kept
+        self._class_pair_done = False  # _fine64 is the class-consistent A64
         # None = try the class operator, True = it is required, False = pair
         self._class_mode = class_operator if n_levels > 1 else False
         if df_operator:
@@ -358,9 +384,11 @@ class MultigridShellSystem:
         operator, or the materialized f64 fine operator; coarse levels
         assembled in f64 and kept in f32 with the diagonal of the f64
         values (the JAX package's df-assembly hi part); per-level damping
-        from the power iteration; the coarsest level's factor. Each old
-        operator is released before its level is rebuilt."""
-        self._cdf = self._fine64 = None
+        from the power iteration; the coarsest level's factor; the fine
+        operator's upper half (``_build_fine_sym``). Each old operator is
+        released before its level is rebuilt."""
+        self._cdf = self._fine64 = self._fine_sym = None
+        self._class_pair_done = False
         for l, sys_l in enumerate(self._systems):
             lvl = dataclasses.replace(self.levels[l], values=None, cparts=None)
             self.levels[l] = lvl
@@ -400,6 +428,18 @@ class MultigridShellSystem:
             self.levels[l] = lvl
         self._fine = self.levels[0]
         self._cdf = self._fine.cparts
+        self._build_fine_sym()
+
+    def _build_fine_sym(self):
+        """The materialized fine operator's off >= 0 slots for the CG
+        matvec (``stencil_spmv_sym``): the CG streams ~55 % of the
+        operator's bytes per iteration. Only with ``sym_spmv`` and a
+        structurally symmetric stencil; an asymmetric one keeps full
+        storage."""
+        self._fine_sym = None
+        offsets = self.levels[0].offsets
+        if self.sym_spmv and self._fine64 is not None and is_symmetric(offsets):
+            self._fine_sym = prepare_sym_values(self._fine64, offsets)
 
     def _build_class_level(self, mesh, sys_l):
         """Host: exact-stencil tables -> the fine level's class operator
@@ -619,22 +659,69 @@ class MultigridShellSystem:
             def mv(x):
                 return class_matvec_f64(cp, x)
         else:
-            fine64, offsets = self._fine64, self.levels[0].offsets
+            fine64, sym, offsets = self._fine64, self._fine_sym, self.levels[0].offsets
 
             def mv(x):
+                if sym is not None:
+                    return stencil_spmv_sym(sym, x, offsets)
                 return stencil_spmv(fine64, x, offsets)
 
         res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=self._prec)
         return res.x, res.iters, res.residual
 
     def _refine_residual(self, x, b):
-        """True residual r = b - A_df x - E x of the class path and its
-        relative norm: A_df in f64, E on x rounded to f32 (as the JAX
-        package evaluates it)."""
-        cp = self._cdf
-        r = b - class_matvec_f64(cp, x)
-        r = r - class_ecorr(cp, x.to(torch.float32)).to(torch.float64)
+        """True residual r = b - A64 x - E x and its relative norm, E on x
+        rounded to f32 (as the JAX package evaluates it). Class path: A64
+        is the f64 class operator. Pair path: A64 is the class-consistent
+        materialized operator, its term compensated (``stencil_resid_dd``,
+        the JAX package's tf residual), E its class table."""
+        x32 = x.to(torch.float32)
+        if self._cdf is not None:
+            r = b - class_matvec_f64(self._cdf, x)
+            e = class_ecorr(self._cdf, x32)
+        else:
+            r = stencil_resid_dd(self._fine64, x, b, self.levels[0].offsets)
+            e = pair_ecorr(self._ecorr, x32)
+        r = r - e.to(torch.float64)
         return r, torch.sqrt(torch.sum(r * r)) / torch.sqrt(torch.sum(b * b))
+
+    def _ensure_exact_stencil(self):
+        """Host, once per system (kept across ``reassemble``, as in the JAX
+        package): the longdouble class tables of the fine grid, their flat
+        (t0, t1) tables and the E term of the pair path. Raises ValueError
+        where ``build_exact_stencil`` refuses the grid."""
+        if hasattr(self, "_pair_tabs"):
+            return
+        st = getattr(self, "_exact_st", None)
+        if st is None:
+            st = build_exact_stencil(self._fine_mesh, self.material, self.levels[0].offsets,
+                                     grid=self.grid)
+        self._exact_st = st
+        tfl0, tfl1, _, cls = class_flat_tables(st)
+        self._ecorr = build_pair_ecorr(st, device=self.device)
+        self._pair_tabs = (tfl0, tfl1, cls)
+
+    def _ensure_class_pair(self):
+        """Replace the assembled fine operator with the class-consistent
+        one generated from the class tables (the same physics, rounded
+        per class): the refinement correction E = A_true - A64 is then a
+        class table. The old operator, its f32 level-0 values and its
+        upper half are released first (two fine operators never
+        coexist); level 0 takes the f32 t0 values and their Jacobi
+        diagonal, keeps its damping, and the upper half is rebuilt."""
+        if self._class_pair_done:
+            return
+        self._ensure_exact_stencil()
+        lvl = dataclasses.replace(self.levels[0], values=None)
+        self.levels[0] = self._fine = lvl
+        self._fine64 = self._fine_sym = None
+        a64, hi = class_pair_flat(*self._pair_tabs, lvl.npad, device=self.device)
+        diag = soa_diagonal(hi, offsets=lvl.offsets)
+        self._fine64 = a64
+        self.levels[0] = self._fine = dataclasses.replace(
+            lvl, values=hi, inv_diag=torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)))
+        self._class_pair_done = True
+        self._build_fine_sym()
 
     def stage_forces(self, forces):
         """Upload a host [n, 6] force field once; returns the [6, npad] f64
@@ -684,7 +771,10 @@ class MultigridShellSystem:
                          inner_maxiter: int = 200, return_device: bool = False):
         """MG-preconditioned f64 CG plus iterative refinement against the
         longdouble class tables: drive the TRUE residual ||b - A x|| /
-        ||b|| (A = A_df + E) toward ``rtol``. Inner solves run to
+        ||b|| (A = A64 + E) toward ``rtol``. On the pair path the fine
+        operator is first swapped for the class-consistent one
+        (``_ensure_class_pair``; ValueError on a grid
+        ``build_exact_stencil`` refuses). Inner solves run to
         ``inner_rtol``; the loop stops at ``rtol``, on a non-finite
         residual, or when a pass improves the residual by less than 10x
         (the representation floor of x). Native f64 puts that floor at
@@ -696,10 +786,7 @@ class MultigridShellSystem:
         if not self.df_operator:
             raise ValueError("solve_df_refined requires df_operator=True")
         if self._cdf is None:
-            raise NotImplementedError(
-                "solve_df_refined on the materialized fine operator (class_operator=False or "
-                "a non-uniform grid) needs the class-consistent pair and the compensated "
-                "residual kernel: ROADMAP.md Queue 2 item 5")
+            self._ensure_class_pair()
         b = self._staged_forces(forces) * self._systems[0].free_t
         x, it0, _ = self._inner_solve(b, inner_rtol, maxiter)
         inner = [int(it0)]
@@ -726,9 +813,10 @@ class MultigridShellSystem:
     def reassemble(self):
         """Rebuild every level's operator (df_operator=True): the class
         tables from the mesh on the class level, f64 assembly elsewhere,
-        then the damping and the coarsest factor. A coupled FSI loop
-        calls it when the geometry changes; benchmarks time it with the
-        solve."""
+        then the damping and the coarsest factor. On the pair path the
+        next ``solve_df_refined`` swaps the class-consistent operator in
+        again (its host tables are kept). A coupled FSI loop calls it
+        when the geometry changes; benchmarks time it with the solve."""
         if not self.df_operator:
             raise NotImplementedError(f"reassemble without df_operator=True: {_ROADMAP}")
         self._assemble_levels()

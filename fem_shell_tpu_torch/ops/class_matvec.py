@@ -29,8 +29,9 @@ does the arithmetic in native f64:
 The refinement residual r = b - A x - E x of the JAX class path is only
 df-accurate (its ``class_matvec_df``), so plain f64 accumulation matches
 or beats it, and this path needs no double-double kernel; the
-compensated residual (TPU kernel 5) belongs to the materialized-pair
-path.
+compensated residual (TPU kernel 5, ops/stencil_resid.py) belongs to the
+materialized-pair path, whose E term is ``build_pair_ecorr`` /
+``pair_ecorr`` below: the same kernel on a table of E = A_true - A64.
 
 Not ported: the padded (8,128) lane layout of ``ops/pallas_class.py``
 (``_PadGridSpec``, ``to_pad_grid``, ``from_pad_grid``, ``pad_core``,
@@ -79,6 +80,33 @@ def _split3(d_ld):
     return h, l, e
 
 
+def _band_deltas(tab, st: ExactStencil):
+    """Per-node deltas of a [K, 6, 6, P, P] class table to its interior
+    class (2, 2) on the four 2-node-wide bands, in the table's type: top
+    and bottom [K, 6, 6, 2, nxp], then left and right [K, 6, 6, 2, nyp],
+    zero on the four band rows (corners: the row bands own them)."""
+    nyp, nxp, cy, cx = st.nyp, st.nxp, st.cy_idx, st.cx_idx
+    t_int = tab[:, :, :, 2, 2][..., None, None]
+
+    def rows(r):
+        return tab[:, :, :, cy[r], :][:, :, :, :, cx] - t_int
+
+    def cols(c):
+        d = tab[:, :, :, cy, :][:, :, :, :, cx[c]] - t_int
+        d[:, :, :, (0, 1, nyp - 2, nyp - 1), :] = 0
+        return np.swapaxes(d, 3, 4)
+
+    return (rows(np.array([0, 1])), rows(np.array([nyp - 2, nyp - 1])),
+            cols(np.array([0, 1])), cols(np.array([nxp - 2, nxp - 1])))
+
+
+def _masks(nz):
+    """[K] uint64 kernel masks from a [K, 6, 6] bool table of accumulated
+    (s, a, b): bit a*6+b of masks[s]."""
+    bits = (1 << np.arange(36, dtype=np.uint64)).reshape(6, 6)
+    return np.array([int(bits[nz[s]].sum()) for s in range(nz.shape[0])], np.uint64)
+
+
 def build_class_parts(st: ExactStencil, npad: int, device=None):
     """Host: exact-stencil tables -> (ClassParts, diag [6, npad] f32),
     uploaded to ``device`` (CUDA unless "cpu" is asked for).
@@ -90,20 +118,8 @@ def build_class_parts(st: ExactStencil, npad: int, device=None):
     if nyp < _P or nxp < _P:
         raise ValueError(f"grid {nyp}x{nxp} smaller than the class patch")
     a_ld = st.t0.astype(LD) + st.t1.astype(LD) + st.t2.astype(LD)  # [K,6,6,P,P]
-    a_int = a_ld[:, :, :, 2, 2]
+    bands = tuple(_split3(d) for d in _band_deltas(a_ld, st))
     cy, cx = st.cy_idx, st.cx_idx
-
-    def band_rows(rows):
-        d = a_ld[:, :, :, cy[rows], :][:, :, :, :, cx] - a_int[..., None, None]
-        return _split3(d)  # [K,6,6,2,nxp]
-
-    def band_cols(cols):
-        d = a_ld[:, :, :, cy, :][:, :, :, :, cx[cols]] - a_int[..., None, None]
-        d[:, :, :, (0, 1, nyp - 2, nyp - 1), :] = LD(0)  # corners: row bands own them
-        return _split3(np.swapaxes(d, 3, 4))  # [K,6,6,2,nyp]
-
-    bands = (band_rows(np.array([0, 1])), band_rows(np.array([nyp - 2, nyp - 1])),
-             band_cols(np.array([0, 1])), band_cols(np.array([nxp - 2, nxp - 1])))
 
     k0 = st.offs2d.index((0, 0))
     aa = np.arange(6)
@@ -128,8 +144,7 @@ def class_parts_of(ih, il, i2, bands, offs2d, nyp: int, nxp: int, npad: int, dev
     for band in bands:
         for part in band:
             nz = nz | (np.asarray(part) != 0).any(axis=(3, 4))
-    bits = (1 << np.arange(36, dtype=np.uint64)).reshape(6, 6)
-    masks = np.array([int(bits[nz[s]].sum()) for s in range(len(offs2d))], np.uint64)
+    masks = _masks(nz)
 
     def f64(h, l):
         return np.asarray(h, np.float64) + np.asarray(l, np.float64)
@@ -168,3 +183,50 @@ def class_ecorr(cp: ClassParts, x32):
     """y = E x in f32, E = A_true - A_df (the t2-class third term), on
     x rounded to f32: the refinement residual's correction term."""
     return _apply(cp, cp.e, x32)
+
+
+@dataclasses.dataclass
+class PairECorr:
+    """The pair path's refinement correction E = A_true - A64 as a class
+    table in f32, A64 = fl64(t0 + t1) per class (the operator
+    ``exact_stencil.class_pair_flat`` generates), with its grid and the
+    kernel's masks (as ``ClassParts.masks``)."""
+
+    table: ClassTable
+    offs2d: Tuple[Tuple[int, int], ...]
+    nyp: int
+    nxp: int
+    masks: np.ndarray
+
+
+def build_pair_ecorr(st: ExactStencil, device=None) -> PairECorr:
+    """Host: E(class) = A_true(class) - fl64(t0 + t1)(class) in
+    longdouble, as interior scalars (class (2, 2)) and band deltas, each
+    rounded once to f32, uploaded to ``device``.
+
+    E is t2 wherever fl64(t0 + t1) is exact; where t1 is so much smaller
+    than t0 that the sum spans more than 53 bits, fl64 rounds it, and E
+    carries that rounding too, so the residual A64 x + E x stays exact to
+    the f32 rounding of E (|E| ~ 2^-48 |A|: ~2^-72 |A||x|)."""
+    dev = resolve_device(device)
+    a64 = (st.t0.astype(np.float64) + st.t1.astype(np.float64)).astype(LD)
+    e_ld = st.t0.astype(LD) + st.t1.astype(LD) + st.t2.astype(LD) - a64  # [K,6,6,P,P]
+    interior = e_ld[:, :, :, 2, 2].astype(np.float32)
+    bands = tuple(d.astype(np.float32) for d in _band_deltas(e_ld, st))
+    nz = interior != 0
+    for band in bands:
+        nz = nz | (band != 0).any(axis=(3, 4))
+    return PairECorr(
+        table=ClassTable.from_numpy(interior, *bands, device=dev),
+        offs2d=tuple(tuple(int(v) for v in o) for o in st.offs2d),
+        nyp=int(st.nyp),
+        nxp=int(st.nxp),
+        masks=_masks(nz),
+    )
+
+
+def pair_ecorr(ec: PairECorr, x32):
+    """y = E x in f32 on x rounded to f32 ([6, npad]): the pair path's
+    refinement residual correction, one class-stencil launch (the JAX
+    package's ``class_stencil_matvec_f32`` on its t2 table)."""
+    return class_stencil(ec.table, x32, ec.offs2d, ec.masks, ec.nyp, ec.nxp)

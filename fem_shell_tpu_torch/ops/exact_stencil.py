@@ -18,14 +18,19 @@ The patch is assembled in numpy longdouble from ``ops/elements_ld.py``
 interpreter instead), and the class tables are split into a triple of
 float32 tables t0 + t1 + t2 that represents the longdouble table to
 ~2^-72 relative. ``ops/class_matvec.py`` turns them into the matrix-free
-operator.
+operator; ``class_flat_tables`` / ``class_pair_flat`` generate the
+class-consistent materialized operator of the pair path from them (the
+JAX package's tile-major ``class_pair_tiled`` is a TPU layout and is not
+ported).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.ops.elements_ld import LD, quad_shell_stiffness, tri_shell_stiffness
 
 _P = 6  # patch nodes per dimension (classes 0, 1, interior, interior, -2, -1)
@@ -199,3 +204,56 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
         nyp=nyp,
         nxp=nxp,
     )
+
+
+def class_flat_tables(stencil: ExactStencil):
+    """(tfl0, tfl1, tfl2, cls_flat): the tables in the SoA row order (row
+    (a*6+b)*K + s, as the operator's values) as [36K, P*P] f32, and the
+    per-node class index [nyp*nxp] int32."""
+    k = len(stencil.offs2d)
+
+    def tfl(t):
+        return np.ascontiguousarray(np.transpose(t, (1, 2, 0, 3, 4)).reshape(36 * k, _P * _P))
+
+    cls_flat = (stencil.cy_idx[:, None] * _P + stencil.cx_idx[None, :]).reshape(-1).astype(np.int32)
+    return tfl(stencil.t0), tfl(stencil.t1), tfl(stencil.t2), cls_flat
+
+
+def class_pair_flat(tfl0, tfl1, cls_flat, npad: int, device=None):
+    """Device: the class-consistent materialized fine operator, generated
+    from the (t0, t1) tables by per-node class index, zero on the padding:
+    (a64, hi), each [36, K, Npad]. ``a64`` = fl64(t0 + t1) in f64 (the
+    JAX package's df pair (hi, lo) as one f64 operator: the CG operator
+    and the refinement residual's main term), ``hi`` = t0 in f32 (the
+    level-0 V-cycle values). A padded node takes an appended all-zero
+    class column, so each operator is one gather with no temporary."""
+    dev = resolve_device(device)
+    k = tfl0.shape[0] // 36
+    cls = torch.full((npad,), _P * _P, dtype=torch.int64)
+    cls[: len(cls_flat)] = torch.from_numpy(np.asarray(cls_flat, np.int64))
+    cls = cls.to(dev)
+
+    def gen(t):
+        tz = torch.from_numpy(np.pad(t, ((0, 0), (0, 1)))).to(dev)
+        return torch.index_select(tz, 1, cls).reshape(36, k, npad)
+
+    a64 = gen(np.asarray(tfl0, np.float64) + np.asarray(tfl1, np.float64))
+    return a64, gen(np.asarray(tfl0, np.float32))
+
+
+def exact_matvec_ld(stencil: ExactStencil, x64):
+    """Host oracle: y = A_true x in longdouble from the class tables, x64
+    [6, nyp*nxp] (numpy); returns longdouble [6, nyp*nxp]. A neighbour
+    outside the grid contributes nothing."""
+    nyp, nxp = stencil.nyp, stencil.nxp
+    t = stencil.t0.astype(LD) + stencil.t1.astype(LD) + stencil.t2.astype(LD)  # [K,6,6,P,P]
+    xg = np.asarray(x64).astype(LD).reshape(6, nyp, nxp)
+    y = np.zeros((6, nyp, nxp), LD)
+    for s, (dy, dx) in enumerate(stencil.offs2d):
+        xs = np.zeros_like(xg)
+        ys0, ys1 = max(0, -dy), min(nyp, nyp - dy)
+        xs0, xs1 = max(0, -dx), min(nxp, nxp - dx)
+        xs[:, ys0:ys1, xs0:xs1] = xg[:, ys0 + dy : ys1 + dy, xs0 + dx : xs1 + dx]
+        coeff = t[s][:, :, stencil.cy_idx][:, :, :, stencil.cx_idx]  # [6,6,nyp,nxp]
+        y += np.einsum("abyx,byx->ayx", coeff, xs)
+    return y.reshape(6, nyp * nxp)

@@ -182,7 +182,8 @@ def test_staged_io_and_reassemble(runs):
 def test_class_operator_required_on_warped_mesh_raises():
     """class_operator=True raises on a non-uniform grid; the default falls
     back to the materialized f64 operator, whose solve_df converges and
-    whose refinement is not ported yet."""
+    whose refinement (it needs the class tables) raises ValueError, as in
+    the JAX package."""
     jmesh, mesh, forces = _plate("q", 16)
     coords = np.asarray(mesh.coords).copy()
     coords[:, 0] += 0.05 * np.sin(coords[:, 1])  # non-affine warp
@@ -193,7 +194,7 @@ def test_class_operator_required_on_warped_mesh_raises():
     assert mg._cdf is None and mg._fine64 is not None and mg.levels[0].values is not None
     u = mg.solve_df(forces, rtol=1e-8)
     assert mg.last_residual < 1e-8 and bool(torch.isfinite(u).all())
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    with pytest.raises(ValueError, match="uniform"):
         mg.solve_df_refined(forces)
 
 
