@@ -26,13 +26,16 @@
 // the card run in no order, so this kernel gathers instead: thread n owns
 // y[:, n] and reads the transposed blocks it needs from the node n - up_s that
 // stores them. No atomics, no carry, no second pass, and one summation order
-// on every run (direct terms by slot, then transposed terms by slot). Both
-// reads are coalesced (stride Npad across the 36*Ku rows, contiguous in n).
-// The transposed read of slot s trails the direct read by up_s <= nxp + 1
-// nodes, so across the card's blocks in flight it hits lines the direct reads
-// brought into L2 shortly before (a working set of about 36*Ku*(nxp + 1)*8
-// bytes, ~1.2 MB at 1024^2 tri, against 50 MB of L2): device memory streams U
-// about once. A target outside [0, Npad) contributes nothing, as in
+// on every run (slot by slot, the direct term and then the transposed one).
+// Both reads are coalesced (stride Npad across the 36*Ku rows, contiguous in
+// n). The two terms of one slot sit in one loop step so that thread n reads
+// U[., s](n - up_s) at about the time thread n - up_s, up_s <= nxp + 1 nodes
+// (a few blocks) earlier, reads it for its direct term, while the line is
+// still in L2, so that device memory streams U about once. (A first version
+// ran every direct term before any transposed one: a block's two phases lay
+// tens of microseconds apart, some 100 MB of traffic against 50 MB of L2,
+// and it ran little faster than the full-storage kernel; PERF.md has the
+// times.) A target outside [0, Npad) contributes nothing, as in
 // stencil_spmv.cu.
 #include <cuda_runtime.h>
 
@@ -55,24 +58,23 @@ __global__ void __launch_bounds__(256) stencil_spmv_sym_kernel(
   T acc[6];
 #pragma unroll
   for (int a = 0; a < 6; ++a) acc[a] = T(0);
-  for (int s = 0; s < ku; ++s) {  // direct: U(n) x(n + up_s)
-    const int64_t t = n + offs.v[s];
-    if (t >= npad) continue;
+  for (int s = 0; s < ku; ++s) {
+    const int off = offs.v[s];
     T xb[6];
+    const int64_t t = n + off;  // direct: U(n) x(n + up_s)
+    if (t < npad) {
 #pragma unroll
-    for (int b = 0; b < 6; ++b) xb[b] = __ldg(x + b * npad + t);
+      for (int b = 0; b < 6; ++b) xb[b] = __ldg(x + b * npad + t);
 #pragma unroll
-    for (int a = 0; a < 6; ++a) {
+      for (int a = 0; a < 6; ++a) {
 #pragma unroll
-      for (int b = 0; b < 6; ++b) {
-        acc[a] += __ldg(upper + ((a * 6 + b) * static_cast<int64_t>(ku) + s) * npad + n) * xb[b];
+        for (int b = 0; b < 6; ++b) {
+          acc[a] += __ldg(upper + ((a * 6 + b) * static_cast<int64_t>(ku) + s) * npad + n) * xb[b];
+        }
       }
     }
-  }
-  for (int s = 0; s < ku; ++s) {  // transposed: U(m)^T x(m), m = n - up_s
-    const int64_t m = n - offs.v[s];
-    if (offs.v[s] == 0 || m < 0) continue;
-    T xb[6];
+    const int64_t m = n - off;  // transposed: U(m)^T x(m), m = n - up_s
+    if (off == 0 || m < 0) continue;
 #pragma unroll
     for (int b = 0; b < 6; ++b) xb[b] = __ldg(x + b * npad + m);
 #pragma unroll
