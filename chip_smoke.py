@@ -491,7 +491,7 @@ def pair_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms, "bytes": nbytes, "ops": ops,
-                "achieved_GBps": nbytes / ms / 1e6, **extra,
+                "achieved_GBps": nbytes / ms / 1e6, **(extra if form == "resid" else {}),
             }
             print(f"  {tag} {form}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) bsr_ms={library_ms:.4f} "

@@ -28,15 +28,15 @@
 // stores them. No atomics, no carry, no second pass, and one summation order
 // on every run (slot by slot, the direct term and then the transposed one).
 // Both reads are coalesced (stride Npad across the 36*Ku rows, contiguous in
-// n). The two terms of one slot sit in one loop step so that thread n reads
-// U[., s](n - up_s) at about the time thread n - up_s, up_s <= nxp + 1 nodes
-// (a few blocks) earlier, reads it for its direct term, while the line is
-// still in L2, so that device memory streams U about once. (A first version
-// ran every direct term before any transposed one: a block's two phases lay
-// tens of microseconds apart, some 100 MB of traffic against 50 MB of L2,
-// and it ran little faster than the full-storage kernel; PERF.md has the
-// times.) A target outside [0, Npad) contributes nothing, as in
-// stencil_spmv.cu.
+// n). The two terms of one slot sit in one loop step, so that thread n reads
+// U[., s](n - up_s) close in time to the direct read of the same entries by
+// thread n - up_s, up_s <= nxp + 1 nodes (a few blocks) earlier, and can find
+// them in L2; with all direct terms first, tens of microseconds and some
+// 100 MB of traffic would lie between the two reads. Even so, on an H100 the
+// kernel takes about as long as the full-storage one, at half its bytes
+// bound: its time follows the 36*(2*Ku - 1) loads it issues per node more
+// than the bytes (PERF.md). A target outside [0, Npad) contributes nothing,
+// as in stencil_spmv.cu.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -373,6 +373,8 @@ class MultigridShellSystem:
         self._fine64: Optional[torch.Tensor] = None  # the materialized fine operator, if any
         self._fine_sym: Optional[torch.Tensor] = None  # its upper half, if kept
         self._class_pair_done = False  # _fine64 is the class-consistent A64
+        self._exact_st = None  # the fine grid's longdouble class tables, once built
+        self._pair_tabs = None  # their flat (t0, t1, class) tables for the pair path
         # None = try the class operator, True = it is required, False = pair
         self._class_mode = class_operator if n_levels > 1 else False
         if df_operator:
@@ -392,6 +394,8 @@ class MultigridShellSystem:
         for l, sys_l in enumerate(self._systems):
             lvl = dataclasses.replace(self.levels[l], values=None, cparts=None)
             self.levels[l] = lvl
+            if l == 0:
+                self._fine = lvl  # drop the old level-0 values with this alias too
             free32 = sys_l.free_t.to(torch.float32)
             cparts = None
             if l == 0 and self._class_mode is not False:
@@ -432,8 +436,8 @@ class MultigridShellSystem:
 
     def _build_fine_sym(self):
         """The materialized fine operator's off >= 0 slots for the CG
-        matvec (``stencil_spmv_sym``): the CG streams ~55 % of the
-        operator's bytes per iteration. Only with ``sym_spmv`` and a
+        matvec (``stencil_spmv_sym``), which needs ~55 % of the
+        operator's values per iteration. Only with ``sym_spmv`` and a
         structurally symmetric stencil; an asymmetric one keeps full
         storage."""
         self._fine_sym = None
@@ -690,15 +694,13 @@ class MultigridShellSystem:
         package): the longdouble class tables of the fine grid, their flat
         (t0, t1) tables and the E term of the pair path. Raises ValueError
         where ``build_exact_stencil`` refuses the grid."""
-        if hasattr(self, "_pair_tabs"):
+        if self._pair_tabs is not None:
             return
-        st = getattr(self, "_exact_st", None)
-        if st is None:
-            st = build_exact_stencil(self._fine_mesh, self.material, self.levels[0].offsets,
-                                     grid=self.grid)
-        self._exact_st = st
-        tfl0, tfl1, _, cls = class_flat_tables(st)
-        self._ecorr = build_pair_ecorr(st, device=self.device)
+        if self._exact_st is None:
+            self._exact_st = build_exact_stencil(self._fine_mesh, self.material,
+                                                 self.levels[0].offsets, grid=self.grid)
+        tfl0, tfl1, _, cls = class_flat_tables(self._exact_st)
+        self._ecorr = build_pair_ecorr(self._exact_st, device=self.device)
         self._pair_tabs = (tfl0, tfl1, cls)
 
     def _ensure_class_pair(self):

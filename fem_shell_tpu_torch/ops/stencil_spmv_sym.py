@@ -7,7 +7,7 @@ Port of the TPU kernel ``fem_shell_tpu/ops/pallas_spmv_df.py``
 materialized df pair), here in native f64. A symmetric stencil operator
 keeps only its off >= 0 slots; each stored block serves its direct term
 and, for off > 0, the transposed term of the node it couples to, so a
-matvec streams ~55 % of the full operator's bytes. The JAX package's
+matvec needs ~55 % of the full operator's bytes. The JAX package's
 tile-major layout and its cross-tile carry are TPU artefacts and are not
 carried over: ``prepare_sym_values`` keeps ``[36, Ku, Npad]``, and the
 kernel gathers the transposed terms (thread n owns y[:, n]).
