@@ -25,6 +25,9 @@ FMA-contracts (tests/test_exact_stencil.py:186-193). So the port is held to
 its own class path on the same mesh, which is the same operator, and the
 JAX numbers stand as reference behaviour (ROADMAP.md Queue 3).
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -230,3 +233,28 @@ def test_pair_refinement_refused_on_warped_grid():
     assert mg._fine64 is fine64 and mg._fine_sym is not None and not mg._class_pair_done
     mg.solve_df(forces, rtol=1e-8)
     assert mg.last_residual < 1e-8
+
+
+def test_old_fine_operator_released_before_the_new_one(monkeypatch):
+    """Two fine operators never coexist: the assembled operator, its f32
+    level-0 values and its upper half are unreferenced when the class
+    pair is generated, and the class pair's are unreferenced when
+    reassemble() assembles the fine level again."""
+    _, mesh, forces = _plate("t", 16)
+    mg = _scale(mesh, coarse_max=4, class_operator=False, sym_spmv=True)
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args, **kw):
+            gc.collect()
+            seen.append([r() is None for r in refs])
+            return fn(*args, **kw)
+        return wrapped
+
+    refs = [weakref.ref(t) for t in (mg.levels[0].values, mg._fine64, mg._fine_sym)]
+    monkeypatch.setattr(tmg, "class_pair_flat", spy(tmg.class_pair_flat))
+    mg.solve_df_refined(forces)
+    refs = [weakref.ref(t) for t in (mg.levels[0].values, mg._fine64, mg._fine_sym)]
+    monkeypatch.setattr(mg._systems[0], "assemble", spy(mg._systems[0].assemble))
+    mg.reassemble()
+    assert seen == [[True, True, True], [True, True, True]]
