@@ -18,16 +18,17 @@ convert.exact_stencil_from_jax). Gates:
 - against the JAX package's E term, ``class_stencil_matvec_f32`` on its
   t2 table: E equals t2 wherever fl64(t0 + t1) is exact, which on these
   grids is every quad entry and all but 48 of 9072 tri entries (where t2
-  misses E by up to 2 % of max|t2|); measured 1.0e-7 (quad) and 2.7e-2
-  (tri) of max|E x| apart, the tri figure all from those entries;
+  misses E by up to 2 % of max|t2|); measured 9.6e-8 (quad) and 5.0e-2
+  (tri) of max|E x| apart, the tri figure all from those entries (the
+  test holds the difference to the longdouble (t2 - E) x at 1e-5);
 - the whole pair residual against the JAX package's eager EFT residual
   ``exact_residual_df``: 1e-13 of the term scale (max over rows of
   sum |a x|);
 - compensation: for a smooth x and b = fl64(A_true x), the dd residual's
   error against the longdouble oracle is at most 1e-2 of the plain-f64
-  residual's error. Measured: dd 3.5e-20 / 3.7e-20 of the term scale
-  (quad / tri, about the oracle's own rounding), plain f64 7.7e-17 /
-  4.1e-17, ratios 4.5e-4 / 9.0e-4 (12^2 probe; the test prints its own).
+  residual's error. Measured: dd 2.3e-20 / 2.9e-20 of the term scale
+  (quad / tri, about the oracle's own rounding), plain f64 7.4e-17 /
+  6.6e-17, ratios 3.1e-4 / 4.3e-4 (the test prints them).
 """
 import dataclasses
 
