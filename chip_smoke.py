@@ -40,6 +40,21 @@ before the last line:
    over the f64 vector peak) and one torch.sparse BSR product of the full
    operator (for the residual: the product and b - y, uncompensated) as a
    yardstick the port never calls.
+2d. The element-stiffness kernel (elem_stiffness<3>, Tri-3, and <4>,
+   Quad-4) against its plain version on the card, on the element
+   coordinates the grid assembly gives it: every strip of the 1024x1024
+   tri and quad fine levels (strips of 65536 // nxp element rows, as
+   LargeShellSystem.assemble_df cuts them; the tri level's first strip also
+   timed alone) and of the 64x64 plates, plus the first 1024x1024 strip
+   warped out of plane (z = 0.3 sin x cos 0.7y, so the local frames turn).
+   Error gate ELEM_GATE of each element's max|ke|. 200 warped elements per
+   family are also held against the numpy-longdouble element of
+   ops/elements_ld.py, at the same gate. Times with CUDA events: the
+   kernel over a whole level (the sum of its launches), the plain version,
+   and the bound (the bytes of xyz and ke over the datasheet bandwidth, or
+   the operations counted from the kernel's source over the f64 vector
+   peak, whichever is larger). No single library call computes a shell
+   element stiffness, so there is no library time.
 3. Test-G, quad and tri at 64x64 (bench.py parameters, rtol 1e-9,
    maxiter 400) through MultigridShellSystem(...).solve_fused: centre
    deflection against the thesis goldens (relative error < 1e-4),
@@ -56,19 +71,30 @@ before the last line:
    reported; the first is *_first), fetch_solution. Gates: centre
    deflection within 1e-3 of the Kirchhoff value, final true residual
    <= 9.7e-4 (the JAX package's df floor at this size), a finite
-   history, class-kernel launches >= the count from the code, and no
-   stencil_spmv<double> launch (no fine operator exists). Then the class
-   path on the Test-G plates, 64x64 quad and tri, against the goldens
-   (relative 1e-4).
+   history, class-kernel launches >= the count from the code, no
+   stencil_spmv<double> launch (no fine operator exists), and
+   elem_stiffness<3> launched in the steady reassemble() exactly as often as
+   the grid assembly of the coarse levels needs (strips x families). Then
+   the class path on the Test-G plates, 64x64 quad and tri, against the
+   goldens (relative 1e-4).
 6. The pair path: phase 5's sequence with class_operator=False at
    1024x1024 tri (the materialized fine operator; solve_df_refined swaps
    in the class-consistent one). Gates: centre within 1e-3 of the
    Kirchhoff value, final true residual <= 9.7e-4, a finite history,
    stencil_spmv_sym<double> launches >= the CG iterations,
    stencil_resid_dd<double> and class_stencil<float> (the E term)
-   launches equal to the refinement passes, and no stencil_spmv<double>
-   launch in the steady pair. Then the pair path on the 64x64 Test-G
-   plates against the goldens (relative 1e-4).
+   launches equal to the refinement passes, no stencil_spmv<double>
+   launch in the steady pair, and elem_stiffness<3> launched in the steady
+   reassemble() as often as the grid assembly of all seven levels needs.
+   Then the pair path on the 64x64 Test-G plates against the goldens
+   (relative 1e-4).
+7. The grid assembly alone: LargeShellSystem.assemble_df(method="grid")
+   of the 1024x1024 tri and quad fine levels against assemble() (the
+   chunked index_add_ scatter), gate 1e-13 of max|A| (the JAX package's
+   grid-against-f64 contract, tests/test_assemble_grid.py), two grid
+   assemblies bitwise equal, its diagonal equal to soa_diagonal, and
+   elem_stiffness launched once per strip and family; seconds and peak
+   memory of each assembly.
 
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
@@ -141,6 +167,28 @@ PAIR_KERNELS = {
 }
 SYM_GATE = 1e-13  # of max|y|: f64, another summation order than the plain version
 RESID_GATE = 1e-15  # of the term scale: both sum in double-double
+ELEM_KERNELS = {
+    3: {"name": "elem_stiffness<3>", "replaces": "fem_shell_tpu/ops/pallas_elem.py:627"},
+    4: {"name": "elem_stiffness<4>", "replaces": "fem_shell_tpu/ops/pallas_elem.py:627"},
+}
+ELEM_SOURCE = "fem_shell_tpu_torch/csrc/elem_stiffness.cu"
+# of each element's max|ke|, kernel against the plain version and against
+# the longdouble element. The Quad-4 frame projects absolute coordinates
+# (the reference's algorithm), so an element of size h at distance |x|
+# from the origin loses ~|x|/h ulps in its local edge lengths: ~1000 on the
+# 1024^2 plate, where the warped strip measured 2.9e-13 against the plain
+# version and 4.4e-13 against longdouble (both versions alike; flat
+# elements 1.7e-16). 1e-12 covers that with a margin of 2.3.
+ELEM_GATE = 1e-12
+# f64 operations per element, counted from csrc/elem_stiffness.cu's source
+# (an add, multiply, divide, square root or comparison one each, an fma
+# two), before the compiler folds the constant quadrature terms. Tri-3:
+# frame 67 + membrane 257 + plate 3 x (609 Specht B + 135 Y B + 450
+# B^T D B) + 79 + 9 node-pair blocks x 365 (drilling term, four 3x3
+# rotations R^T L R) = 7270. Quad-4: frame 126 + membrane 4 x 480 + plate
+# 88 + 4 x 1183 + 16 x 365 = 12706.
+ELEM_OPS = {3: 7270, 4: 12706}
+GRID_GATE = 1e-13  # of max|A|
 # the JAX package's refined 1024^2 tri solve reached this true residual,
 # its df representation floor at that size (BENCH_r05.json)
 JAX_SCALE_FLOOR = 9.7e-4
@@ -503,6 +551,180 @@ def pair_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
     return rows
 
 
+def elem_work(m, ne):
+    """(bytes, operations) of elem_stiffness over ne elements: xyz read
+    once and ke written once, 8 (3m + 36m^2) bytes per element, and
+    ELEM_OPS[m] operations per element."""
+    return 8 * (3 * m + 36 * m * m) * ne, ELEM_OPS[m] * ne
+
+
+def elem_err(ke, ref):
+    """(max over elements of max|ke - ref| / max|ref|, max|ke - ref|) for
+    [6m, 6m, E] batches."""
+    d = (ke - ref).abs().amax(dim=(0, 1))
+    return float((d / ref.abs().amax(dim=(0, 1))).max()), float(d.max())
+
+
+def elem_kernel_phase(gates, cases, bandwidth, peaks, device="cuda"):
+    """elem_stiffness against its plain version on the strips the grid
+    assembly cuts, and against the longdouble element; one record per
+    (shape, family size m). ``cases`` lists (element type, n, reps); the
+    largest n also runs the warped strip and the longdouble check."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.mg import detect_structured_grid
+    from fem_shell_tpu_torch.ops import elements_ld as eld
+    from fem_shell_tpu_torch.ops.assemble_grid import (
+        family_coords, family_corners, grid_coords, strip_bounds)
+    from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness, elem_stiffness_plain
+
+    mat = Material(0.3, 1e7, 0.5)
+    t = mat.thickness
+    dm64, dp64 = mat.matrices()
+    dm, dp = (torch.from_numpy(a).to(device) for a in (dm64, dp64))
+    dml, dpl = (np.asarray(a, np.longdouble) for a in (dm64, dp64))
+    rows = []
+    big = max(n for _, n, _ in cases)
+    for et, n, reps in cases:
+        mesh, _, _ = plate(et, n)
+        grid = detect_structured_grid(mesh)
+        m = 3 if et == "t" else 4
+        strip_rows = max(1, 65536 // grid.nxp)  # assemble_df's default strip_nodes
+        corners = family_corners(et, grid.ul_lr)
+        cg = grid_coords(grid, mesh.coords, device)
+        xyzs = [family_coords(cg, c, r0, rows_e)
+                for r0, rows_e in strip_bounds(grid.nyp - 1, strip_rows) for c in corners]
+        ne = sum(x.shape[2] for x in xyzs)
+        tag = f"{et}{n} m={m} {len(xyzs)} launches of {xyzs[0].shape[2]} elements"
+        err = max_abs = 0.0
+        finite = True
+        for x in xyzs:
+            ke, ref = elem_stiffness(x, dm, dp, t), elem_stiffness_plain(x, dm, dp, t)
+            e_rel, e_abs = elem_err(ke, ref)
+            err, max_abs = max(err, e_rel), max(max_abs, e_abs)
+            finite = finite and bool(torch.isfinite(ke).all())
+            del ke, ref
+        torch.cuda.synchronize()
+        gates.check(finite and err <= ELEM_GATE,
+                    f"elem kernel {tag}: max|ke-plain|/max|ke| per element = {err:.3e} <= {ELEM_GATE:.0e}")
+        extra = {}
+        if n == big:
+            # the first strip warped out of plane: frames that turn
+            c = np.asarray(mesh.coords, np.float64).copy()
+            c[:, 2] = 0.3 * np.sin(c[:, 0]) * np.cos(0.7 * c[:, 1])
+            cw = grid_coords(grid, c, device)
+            w_err = ld_err = plain_ld_err = 0.0
+            for corner in corners:
+                xw = family_coords(cw, corner, 0, min(strip_rows, grid.nyp - 1))
+                ke, ref = elem_stiffness(xw, dm, dp, t), elem_stiffness_plain(xw, dm, dp, t)
+                w_err = max(w_err, elem_err(ke, ref)[0])
+                sel = np.linspace(0, xw.shape[2] - 1, 200).astype(int)
+                xs, ks, rs = xw[:, :, sel].cpu().numpy(), ke[:, :, sel].cpu().numpy(), ref[:, :, sel].cpu().numpy()
+                fn = eld.tri_shell_stiffness if m == 3 else eld.quad_shell_stiffness
+                for j in range(len(sel)):
+                    k_ld = fn(xs[:, :, j], dml, dpl, np.longdouble(t))
+                    sc = float(np.abs(k_ld).max())
+                    ld_err = max(ld_err, float(np.abs(ks[:, :, j] - k_ld).max()) / sc)
+                    plain_ld_err = max(plain_ld_err, float(np.abs(rs[:, :, j] - k_ld).max()) / sc)
+                del ke, ref, xw
+            gates.check(w_err <= ELEM_GATE,
+                        f"elem kernel {et}{n} warped strip: {w_err:.3e} <= {ELEM_GATE:.0e}")
+            gates.check(ld_err <= ELEM_GATE,
+                        f"elem kernel {et}{n} warped, {len(corners) * 200} elements against longdouble: "
+                        f"{ld_err:.3e} (plain {plain_ld_err:.3e}) <= {ELEM_GATE:.0e}")
+            extra = {"warped_rel_err": w_err, "ld_rel_err": ld_err, "plain_ld_rel_err": plain_ld_err,
+                     "strip_ms": cuda_ms(lambda: elem_stiffness(xyzs[0], dm, dp, t), 20)}
+            del cw
+
+        def kern():
+            for x in xyzs:
+                elem_stiffness(x, dm, dp, t)
+
+        def plain():
+            for x in xyzs:
+                elem_stiffness_plain(x, dm, dp, t)
+
+        ms = cuda_ms(kern, reps, warmup=1)
+        plain_ms = cuda_ms(plain, max(2, reps // 5), warmup=1)
+        nbytes, ops = elem_work(m, ne)
+        t_bytes, t_ops = nbytes / bandwidth, ops / peaks[torch.float64]
+        rec = {
+            "shape": f"{et}{n}", "m": m, "elements": ne, "launches_per_level": len(xyzs),
+            "strip_elements": int(xyzs[0].shape[2]), "max_abs_err": max_abs, "rel_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "bytes": nbytes, "ops": ops, "achieved_GBps": nbytes / ms / 1e6, **extra,
+        }
+        print(f"  {tag}: level kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}) rel_err={err:.2e} ({rec['achieved_GBps']:.0f} GB/s) "
+              f"{' '.join(f'{k}={v:.3e}' for k, v in extra.items())}", flush=True)
+        rows.append(rec)
+        del xyzs, cg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def grid_phase(gates, n, device="cuda"):
+    """LargeShellSystem.assemble_df(method="grid") of the n^2 tri and quad
+    fine levels against the index_add_ assembly; the first grid assembly of
+    each is a run of this slice's path, counted from zero."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.assemble_grid import family_corners, strip_bounds
+    from fem_shell_tpu_torch.ops.soa import soa_diagonal
+
+    mat = Material(0.3, 1e7, 0.5)
+    rows = []
+    for et in ("t", "q"):
+        mesh, _, _ = plate(et, n)
+        sys_ = LargeShellSystem(mesh, mat, device=device)
+        grid = sys_.grid
+        m = 3 if et == "t" else 4
+        want = len(strip_bounds(grid.nyp - 1, max(1, 65536 // grid.nxp))) * len(family_corners(et, grid.ul_lr))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        v, d = sys_.assemble_df(method="grid", with_diag=True)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        launches = read_launches()
+        grid_peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        v2 = sys_.assemble_df(method="grid")
+        torch.cuda.synchronize()
+        grid2_s = time.perf_counter() - t0
+        same = torch.equal(v, v2)
+        del v2
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = sys_.assemble()
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        index_peak = torch.cuda.max_memory_allocated() - base
+        scale = float(ref.abs().max())
+        err = float((v - ref).abs().max()) / scale
+        tag = f"grid {et}{n} K={v.shape[1]} Npad={v.shape[2]}"
+        gates.check(bool(torch.isfinite(v).all()) and err <= GRID_GATE,
+                    f"{tag}: max|A_grid - A_index_add|/max|A| = {err:.3e} <= {GRID_GATE:.0e}")
+        gates.check(same and torch.equal(d, soa_diagonal(v, sys_.offsets)),
+                    f"{tag}: two grid assemblies bitwise equal, diagonal equal to soa_diagonal")
+        gates.check(launches[f"elem{m}"] == want and launches[f"elem{7 - m}"] == 0,
+                    f"{tag}: elem_stiffness<{m}> launches {launches[f'elem{m}']} == {want} strips x families")
+        rec = {"case": tag, "rel_err": err, "bitwise_equal": same, "grid_s": grid_s,
+               "grid_again_s": grid2_s, "index_add_s": index_s, "grid_peak_bytes": grid_peak,
+               "index_add_peak_bytes": index_peak, "launches": launches, "expected_elem": want}
+        print(f"  {tag}: rel_err={err:.2e} bitwise={same} grid_s={grid_s:.4f} again={grid2_s:.4f} "
+              f"index_add_s={index_s:.4f} peak grid={grid_peak} index_add={index_peak} "
+              f"elem launches {launches[f'elem{m}']}/{want}", flush=True)
+        rows.append(rec)
+        del v, d, ref, sys_
+        torch.cuda.empty_cache()
+    return rows
+
+
 def device_profile(fn):
     """Kernel time by name over one call of ``fn`` (torch.profiler): the
     device's busy milliseconds (kernels of one stream do not overlap), the
@@ -625,11 +847,12 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
 
 def reset_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
+    from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness
     from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
     from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
     from fem_shell_tpu_torch.ops.stencil_spmv_sym import stencil_spmv_sym
 
-    for counts in (stencil_spmv.launches, class_stencil.launches):
+    for counts in (stencil_spmv.launches, class_stencil.launches, elem_stiffness.launches):
         for dt in counts:
             counts[dt] = 0
     stencil_resid_dd.launches = stencil_spmv_sym.launches = 0
@@ -637,6 +860,7 @@ def reset_launches():
 
 def read_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
+    from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness
     from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
     from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
     from fem_shell_tpu_torch.ops.stencil_spmv_sym import stencil_spmv_sym
@@ -645,7 +869,22 @@ def read_launches():
             "spmv_f64": stencil_spmv.launches[torch.float64],
             "class_f32": class_stencil.launches[torch.float32],
             "class_f64": class_stencil.launches[torch.float64],
-            "sym": stencil_spmv_sym.launches, "resid": stencil_resid_dd.launches}
+            "sym": stencil_spmv_sym.launches, "resid": stencil_resid_dd.launches,
+            "elem3": elem_stiffness.launches[3], "elem4": elem_stiffness.launches[4]}
+
+
+def elem_launch_count(mg):
+    """elem_stiffness launches of one assembly of mg's levels: with a big
+    fine mesh every materialized level is assembled by the grid pipeline,
+    one launch per strip and element family; none otherwise."""
+    from fem_shell_tpu_torch.ops.assemble_grid import family_corners, strip_bounds
+
+    if not mg._big:
+        return 0
+    fams = len(family_corners(mg.grid.elem_type, mg.grid.ul_lr))
+    first = 1 if mg._cdf is not None else 0  # the class level is not assembled
+    return sum(len(strip_bounds(lvl.nyp - 1, max(1, mg._df_strip_nodes // lvl.nxp))) * fams
+               for lvl in mg.levels[first:])
 
 
 def class_launch_counts(mg):
@@ -759,6 +998,12 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
                     f"f32 {launches['class_f32']} >= {want32}")
         gates.check(launches["spmv_f64"] + spmv64_before == 0,
                     f"{tag}: stencil_spmv<double> launches {launches['spmv_f64'] + spmv64_before} == 0")
+    want_elem = elem_launch_count(mg)
+    key_elem = "elem3" if et == "t" else "elem4"
+    expected["elem_stiffness"] = want_elem
+    gates.check(launches[key_elem] == want_elem and (want_elem > 0 or not steady),
+                f"{tag}: elem_stiffness launches {launches[key_elem]} == {want_elem} "
+                f"({'the steady reassemble' if steady else 'the constructor'}'s grid assembly)")
     prof = device_profile(lambda: mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)) \
         if steady else None
     rec = {
@@ -806,9 +1051,11 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
+    ptxas = {stem: [ln.strip() for ln in info["log"].splitlines()
+                    if "registers" in ln or "spill" in ln or "entry function" in ln]
+             for stem, info in built.items()}
     for stem, info in built.items():
-        ptxas = [ln for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-        print(f"  built {stem} in {info['seconds']:.1f} s: {' | '.join(ptxas)}", flush=True)
+        print(f"  built {stem} in {info['seconds']:.1f} s: {' | '.join(ptxas[stem])}", flush=True)
     print(f"  build_s={build_s:.2f}", flush=True)
 
     print("phase 2: kernels against their plain versions", flush=True)
@@ -820,6 +1067,10 @@ def main() -> int:
 
     print("phase 2c: pair-path kernels against their plain versions", flush=True)
     pkern = pair_kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
+
+    print("phase 2d: element-stiffness kernel against its plain version", flush=True)
+    ekern = elem_kernel_phase(gates, (("t", 1024, 5), ("q", 1024, 5), ("t", 64, 50), ("q", 64, 50)),
+                              bandwidth, peaks)
 
     print("phase 3: Test-G (64x64, rtol 1e-9)", flush=True)
     runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et])
@@ -837,6 +1088,9 @@ def main() -> int:
     pair_runs = [class_solve_phase(gates, "t", 1024, pair=True)]
     pair_runs += [class_solve_phase(gates, et, 64, golden=GOLDEN[et], gate_rel=1e-4, steady=False,
                                     pair=True) for et in ("q", "t")]
+
+    print("phase 7: grid assembly against the index_add_ assembly (1024x1024 tri and quad)", flush=True)
+    grids = grid_phase(gates, 1024)
 
     entries = []
     for dtype, meta in KERNELS.items():
@@ -890,11 +1144,28 @@ def main() -> int:
                          for r in mine],
         })
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
+    for m, meta in ELEM_KERNELS.items():
+        mine = [r for r in ekern if r["m"] == m]
+        at = max(mine, key=lambda r: r["elements"])  # the scale fine level
+        key = f"elem{m}"
+        entries.append({
+            "name": meta["name"], "route": "cuda", "source": ELEM_SOURCE, "replaces": meta["replaces"],
+            "launches": sum(r["launches"][key] for r in class_runs + pair_runs + grids),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_rel_err": max(r["rel_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": None,
+            "at": f"{at['shape']} fine level, {at['launches_per_level']} launches of "
+                  f"{at['strip_elements']} elements",
+            "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                         for r in mine],
+        })
+        gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "longdouble_eps": float(np.finfo(np.longdouble).eps),
-         "kernels": kern, "class_kernels": ckern, "pair_kernels": pkern, "solves": runs,
-         "class_solves": class_runs, "pair_solves": pair_runs},
+        {"card": smi, "build_s": build_s, "ptxas": ptxas, "longdouble_eps": float(np.finfo(np.longdouble).eps),
+         "kernels": kern, "class_kernels": ckern, "pair_kernels": pkern, "elem_kernels": ekern,
+         "solves": runs, "class_solves": class_runs, "pair_solves": pair_runs, "grid": grids},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

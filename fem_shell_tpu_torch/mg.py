@@ -24,11 +24,13 @@ Two configurations are ported:
   constructor (the scale configuration): on a uniform grid the fine
   level is the matrix-free class-table operator (ops/class_matvec.py;
   no fine operator is assembled or stored), coarse levels are assembled
-  in f64 and kept in f32. ``solve_df`` runs f64 PCG over the fine
-  operator, ``solve_df_refined`` adds iterative refinement against the
-  longdouble class tables; ``stage_forces`` / ``return_device`` /
-  ``fetch_solution`` keep the fields on the device, and ``reassemble``
-  rebuilds every level. The class operator runs through
+  in f64 and kept in f32. From 65,536 fine elements every assembled level
+  comes from the scatter-free grid pipeline (ops/assemble_grid.py, the
+  element kernel ops/elem_stiffness.py on the card). ``solve_df`` runs
+  f64 PCG over the fine operator, ``solve_df_refined`` adds iterative
+  refinement against the longdouble class tables; ``stage_forces`` /
+  ``return_device`` / ``fetch_solution`` keep the fields on the device,
+  and ``reassemble`` rebuilds every level. The class operator runs through
   ``ops/class_stencil.class_stencil`` (f64 for the CG and the residual,
   f32 with the fused smoother epilogue in the V-cycle); coarse levels
   through ``stencil_spmv`` in f32.
@@ -59,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fem_shell_tpu_torch import large
 from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.large import LargeShellSystem
 from fem_shell_tpu_torch.materials import Material
@@ -250,6 +253,7 @@ class MultigridShellSystem:
         coarse_op: Optional[str] = None,
         cycle: Optional[str] = None,
         sym_spmv: Optional[bool] = None,
+        strip_nodes: int = 65536,
         device=None,
     ):
         """Without ``df_operator`` (dtype float64) levels are built lazily:
@@ -264,7 +268,11 @@ class MultigridShellSystem:
         (assemble=True) for the scale configuration, and the fused path
         otherwise. ``sym_spmv`` keeps the materialized fine operator's
         upper half for the CG matvec (symmetric storage); None = on from
-        65,536 elements (the JAX package's threshold), on any device.
+        ``large.GRID_MIN_ELEMENTS`` (65,536) elements, the JAX package's
+        threshold, on any device. From that many fine elements every
+        level of the df_operator hierarchy is assembled by the
+        scatter-free grid pipeline (``LargeShellSystem.assemble_df``,
+        ``strip_nodes`` nodes per strip), as in the JAX package.
         ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host.
         Each level's smoother is damped with omega = 4/(3 lambda_max)."""
         if isinstance(mesh, MeshGenParams):
@@ -303,8 +311,9 @@ class MultigridShellSystem:
         self.smoother = smoother
         self.cheby_lo = 0.25
         self.cycle = "V"
-        big = len(mesh.tri) + len(mesh.quad) >= 65536
-        self.sym_spmv = big if sym_spmv is None else bool(sym_spmv)
+        self._big = len(mesh.tri) + len(mesh.quad) >= large.GRID_MIN_ELEMENTS
+        self.sym_spmv = self._big if sym_spmv is None else bool(sym_spmv)
+        self._df_strip_nodes = int(strip_nodes)
 
         grid = detect_structured_grid(mesh)
         if grid is None:
@@ -385,8 +394,11 @@ class MultigridShellSystem:
         """Build (or rebuild) every df_operator level: the fine class
         operator, or the materialized f64 fine operator; coarse levels
         assembled in f64 and kept in f32 with the diagonal of the f64
-        values (the JAX package's df-assembly hi part); per-level damping
-        from the power iteration; the coarsest level's factor; the fine
+        values (the JAX package's df-assembly hi part). Over a fine mesh of
+        ``large.GRID_MIN_ELEMENTS`` elements or more every assembled level
+        goes through the grid pipeline (the JAX package's rule,
+        fem_shell_tpu/mg.py:658-662), else ``assemble_df`` picks per
+        level; per-level damping from the power iteration; the coarsest level's factor; the fine
         operator's upper half (``_build_fine_sym``). Each old operator is
         released before its level is rebuilt."""
         self._cdf = self._fine64 = self._fine_sym = None
@@ -415,8 +427,8 @@ class MultigridShellSystem:
                     inv_diag=torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)),
                 )
             else:
-                v64 = sys_l.assemble()
-                d64 = soa_diagonal(v64, offsets=lvl.offsets)
+                v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes,
+                                             method="grid" if self._big else "auto", with_diag=True)
                 if l == 0:
                     self._fine64 = v64
                 lvl = dataclasses.replace(

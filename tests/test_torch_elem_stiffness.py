@@ -1,0 +1,146 @@
+"""Port parity: the batch-last element stiffness of fem_shell_tpu_torch
+(``ops/elem_stiffness.py``, the plain version of ``csrc/elem_stiffness.cu``)
+against the JAX package, on the same seeded elements.
+
+The JAX package's TPU kernel (``ops/pallas_elem.py``) re-executes the
+single-element stiffness in two-float32 arithmetic; on the CPU its own
+tests hold it through ``df_function_bl`` evaluated eagerly (bit-equal to
+the kernel body, tests/test_pallas_elem.py), and the interpret-mode
+``pallas_call`` is marked slow there. So the port's plain version is held
+against ``df_function_bl(kernel_fn)`` (hi + lo) and against the vmapped
+f64 ``tri_shell_stiffness`` / ``quad_shell_stiffness``, on 8 elements per
+family: 4 flat in the xy-plane and 4 tilted in 3-D (the quads also
+warped out of their plane), with input coordinates that are exact
+two-float32 pairs. Tolerance: 1e-12 of each element's max|ke| (f64 in
+another order of operations, and the df pair's ~2^-48 arithmetic). Each
+JAX call runs once, in a module fixture (8.7-10.1 s eagerly).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fem_shell_tpu.materials import Material as JMaterial
+from fem_shell_tpu.ops import elements as jel
+from fem_shell_tpu.ops.df import DF
+from fem_shell_tpu.ops.dfk import df_function_bl
+from fem_shell_tpu_torch.ops import elem_stiffness as tes
+
+JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
+GATE = 1e-12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny tensors: the test workers share
+    the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _elements(m: int, seed: int) -> np.ndarray:
+    """[m, 3, 8] batch-last coordinates, exact two-float32 pairs: 4 flat
+    elements in the xy-plane, 4 tilted in 3-D (quads warped)."""
+    rng = np.random.default_rng(seed)
+    if m == 3:
+        base = np.array([[0.0, 0.0], [1.0, 0.0], [0.3, 0.9]])
+    else:
+        base = np.array([[0.0, 0.0], [1.0, 0.0], [1.1, 0.9], [-0.1, 1.0]])
+    out = np.empty((8, m, 3))
+    for e in range(8):
+        xy = (base + 0.1 * rng.normal(size=base.shape)) * rng.uniform(0.2, 3.0)
+        pts = np.hstack([xy, np.zeros((m, 1))])
+        if e >= 4:
+            if m == 4:
+                pts[:, 2] = 0.05 * rng.normal(size=m)
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            pts = pts @ q.T + rng.normal(size=3) * 10.0
+        out[e] = pts
+    xyz = np.ascontiguousarray(out.transpose(1, 2, 0))
+    hi = xyz.astype(np.float32)
+    lo = (xyz - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+def _kernel_fn(m):
+    dm, dp = (jnp.asarray(a, jnp.float64) for a in JMAT.matrices())
+    base = jel.tri_shell_stiffness if m == 3 else jel.quad_shell_stiffness
+    return lambda p: base(p, dm, dp, JMAT.thickness)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """Per family: coordinates, the JAX df-interpreted stiffness (hi + lo),
+    the JAX vmapped f64 stiffness on the same coordinates, and the port's
+    plain version; all [6m, 6m, 8]."""
+    out = {}
+    dm, dp = (torch.from_numpy(a) for a in JMAT.matrices())
+    for m in (3, 4):
+        hi, lo = _elements(m, seed=50 + m)
+        xyz = hi.astype(np.float64) + lo.astype(np.float64)  # exact
+        kfn = _kernel_fn(m)
+        (ke_df,) = df_function_bl(kfn)(DF(jnp.asarray(hi), jnp.asarray(lo)))
+        df = np.asarray(ke_df.hi, np.float64) + np.asarray(ke_df.lo, np.float64)
+        f64 = np.moveaxis(np.asarray(jax.jit(jax.vmap(kfn))(jnp.asarray(np.moveaxis(xyz, 2, 0)))), 0, 2)
+        port = tes.elem_stiffness(torch.from_numpy(xyz), dm, dp, JMAT.thickness).numpy()
+        out[m] = {"xyz": xyz, "df": df, "f64": f64, "port": port, "dm": dm, "dp": dp}
+    return out
+
+
+def _per_element_err(got, ref):
+    scale = np.abs(ref).max(axis=(0, 1))
+    return (np.abs(got - ref).max(axis=(0, 1)) / scale).max()
+
+
+@pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
+def test_plain_matches_jax_df_interpretation(cases, m):
+    """The port against the JAX TPU kernel's arithmetic (df_function_bl,
+    which the Pallas kernel reproduces bit for bit)."""
+    c = cases[m]
+    assert c["port"].shape == c["df"].shape == (6 * m, 6 * m, 8)
+    assert _per_element_err(c["port"], c["df"]) <= GATE
+
+
+@pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
+def test_plain_matches_jax_f64_elements(cases, m):
+    c = cases[m]
+    assert _per_element_err(c["port"], c["f64"]) <= GATE
+
+
+@pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
+def test_cpu_takes_the_plain_version_uncounted(cases, m):
+    """On the CPU the wrapper returns the plain version, batch-last and
+    contiguous, and counts no launch."""
+    c = cases[m]
+    before = dict(tes.elem_stiffness.launches)
+    xyz = torch.from_numpy(c["xyz"])
+    ke = tes.elem_stiffness(xyz, c["dm"], c["dp"], JMAT.thickness)
+    assert ke.is_contiguous() and ke.dtype == torch.float64
+    assert torch.equal(ke, tes.elem_stiffness_plain(xyz, c["dm"], c["dp"], JMAT.thickness))
+    assert tes.elem_stiffness.launches == before
+
+
+def test_wrapper_refuses_bad_inputs(cases):
+    c = cases[3]
+    xyz, dm, dp = torch.from_numpy(c["xyz"]), c["dm"], c["dp"]
+    t = JMAT.thickness
+    with pytest.raises(TypeError, match="float64"):
+        tes.elem_stiffness(xyz.float(), dm, dp, t)
+    with pytest.raises(TypeError, match="float64"):
+        tes.elem_stiffness(xyz, dm.float(), dp, t)
+    with pytest.raises(ValueError, match=r"\[m, 3, E\]"):
+        tes.elem_stiffness(torch.zeros((5, 3, 8), dtype=torch.float64), dm, dp, t)
+    with pytest.raises(ValueError, match=r"\[m, 3, E\]"):
+        tes.elem_stiffness(xyz.permute(2, 1, 0).contiguous(), dm, dp, t)
+    with pytest.raises(ValueError, match=r"\[m, 3, E\]"):
+        tes.elem_stiffness(torch.zeros((3, 3, 0), dtype=torch.float64), dm, dp, t)
+    with pytest.raises(ValueError, match=r"\[3, 3\]"):
+        tes.elem_stiffness(xyz, dm[:2], dp, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        tes.elem_stiffness(torch.from_numpy(c["xyz"][:, :, ::2]), dm, dp, t)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        meta = [a.to("meta") for a in (xyz, dm, dp)]
+        tes.elem_stiffness(*meta, t)

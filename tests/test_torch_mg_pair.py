@@ -35,6 +35,7 @@ import torch
 from fem_shell_tpu.materials import Material as JMaterial
 from fem_shell_tpu.meshgen import MeshGenParams as JParams, generate as jgenerate
 from fem_shell_tpu.ops.exact_stencil import build_exact_stencil, exact_matvec_f64
+from fem_shell_tpu_torch import large as tlarge
 from fem_shell_tpu_torch import mg as tmg
 from fem_shell_tpu_torch.convert import material_from_jax, mesh_from_jax
 from fem_shell_tpu_torch.mesh import ShellMesh
@@ -235,11 +236,10 @@ def test_pair_refinement_refused_on_warped_grid():
     assert mg.last_residual < 1e-8
 
 
-def test_old_fine_operator_released_before_the_new_one(monkeypatch):
-    """Two fine operators never coexist: the assembled operator, its f32
-    level-0 values and its upper half are unreferenced when the class
-    pair is generated, and the class pair's are unreferenced when
-    reassemble() assembles the fine level again."""
+def _check_release_order(monkeypatch, assembler: str):
+    """Spy on the fine system's ``assembler`` during reassemble() and on
+    class_pair_flat during the refined solve; both must find the previous
+    fine operators unreferenced."""
     _, mesh, forces = _plate("t", 16)
     mg = _scale(mesh, coarse_max=4, class_operator=False, sym_spmv=True)
     seen = []
@@ -255,6 +255,27 @@ def test_old_fine_operator_released_before_the_new_one(monkeypatch):
     monkeypatch.setattr(tmg, "class_pair_flat", spy(tmg.class_pair_flat))
     mg.solve_df_refined(forces)
     refs = [weakref.ref(t) for t in (mg.levels[0].values, mg._fine64, mg._fine_sym)]
-    monkeypatch.setattr(mg._systems[0], "assemble", spy(mg._systems[0].assemble))
+    monkeypatch.setattr(mg._systems[0], assembler, spy(getattr(mg._systems[0], assembler)))
     mg.reassemble()
     assert seen == [[True, True, True], [True, True, True]]
+
+
+def test_old_fine_operator_released_before_the_new_one(monkeypatch):
+    """Two fine operators never coexist: the assembled operator, its f32
+    level-0 values and its upper half are unreferenced when the class
+    pair is generated, and the class pair's are unreferenced when
+    reassemble() assembles the fine level again."""
+    _check_release_order(monkeypatch, "assemble")
+
+
+def test_old_fine_operator_released_before_the_new_one_on_the_grid_path(monkeypatch):
+    """The same rule where every level comes from the grid pipeline (the
+    threshold lowered, so the 16^2 plate counts as big): the spy sits on
+    assemble_df, which runs assemble_grid."""
+    monkeypatch.setattr(tlarge, "GRID_MIN_ELEMENTS", 512)
+    grid_calls = []
+    real = tlarge.assemble_grid
+    monkeypatch.setattr(tlarge, "assemble_grid",
+                        lambda *a, **kw: grid_calls.append(a[0].nxp) or real(*a, **kw))
+    _check_release_order(monkeypatch, "assemble_df")
+    assert grid_calls.count(17) == 2  # the fine level, in the constructor and in reassemble()

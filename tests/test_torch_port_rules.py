@@ -42,6 +42,10 @@ mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), dtype=torch.float32, df
                           sym_spmv=True, device="cpu")
 mg.solve_df_refined(rows * fac)
 assert mg._fine_sym is not None and mg._class_pair_done and mg.refine_history[-1] < 1e-9
+s = mg._systems[0]
+v, d = s.assemble_df(method="grid", with_diag=True)
+ref = s.assemble()
+assert float((v - ref).abs().max()) <= 1e-13 * float(ref.abs().max()) and d.shape == (6, v.shape[2])
 bad =sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "fem_shell_tpu" or m.startswith("fem_shell_tpu."))
 print("FOREIGN", bad)
@@ -51,8 +55,8 @@ print("LOADED", sorted(_build._loaded))
 
 def test_package_and_solve_import_no_jax():
     # a fresh interpreter (this test process has imported JAX already)
-    # runs the fused solve and the refined solves of the class operator
-    # and of the materialized pair
+    # runs the fused solve, the refined solves of the class operator and
+    # of the materialized pair, and a 12^2 grid assembly
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -80,7 +84,8 @@ def test_sources_import_no_jax():
         assert "import_module(" not in src and "__import__(" not in src, f
 
 
-CUDA_SOURCES = ("stencil_spmv.cu", "class_stencil.cu", "stencil_resid.cu", "stencil_spmv_sym.cu")
+CUDA_SOURCES = ("stencil_spmv.cu", "class_stencil.cu", "stencil_resid.cu", "stencil_spmv_sym.cu",
+                "elem_stiffness.cu")
 
 
 @pytest.mark.parametrize("name", CUDA_SOURCES)
