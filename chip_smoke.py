@@ -26,7 +26,12 @@ before the last line:
    the datasheet bandwidth, or its operations over the vector peak,
    whichever is larger) and one torch.nn.functional.conv2d (6->6, 3x3,
    zero padding: the interior term only) as a yardstick the port never
-   calls.
+   calls. Each form's device time per launch also comes from
+   torch.profiler (at 64x64 the events time the host's per-call cost). The
+   same launch through the all-36-term instance of the kernel (the instance
+   a table outside the flat-shell pattern takes) is gated and timed beside
+   it, and the ptxas line and the SASS instruction counts of every
+   instance are recorded.
 2c. The pair path's kernels against their plain versions on the card, on
    class-consistent operators built by the port (64x64 quad and tri,
    1024x1024 tri): stencil_spmv_sym<double> (the symmetric-storage CG
@@ -58,11 +63,15 @@ before the last line:
 3. Test-G, quad and tri at 64x64 (bench.py parameters, rtol 1e-9,
    maxiter 400) through MultigridShellSystem(...).solve_fused: centre
    deflection against the thesis goldens (relative error < 1e-4),
-   iteration counts within 1 of the JAX package's f64 counts, and the
-   kernel's launch counts.
+   iteration counts within 1 of the JAX package's f64 counts, the
+   kernels' launch counts (stencil_spmv, and elem_stiffness once per
+   strip and family of every level: the levels come from the grid
+   assembly), and repeated solves equal bit for bit. The assembly of every
+   level is timed apart, through the grid pipeline (the path's) and
+   through index_add_ (the path's assembly before the grid pipeline).
 4. Scale: the same program at 1024x1024 tri (2,097,152 elements,
    6,303,750 DOF, 7 levels), centre deflection against the analytic
-   Kirchhoff value at relative error < 1e-3.
+   Kirchhoff value at relative error < 1e-3, two solves bitwise equal.
 5. The scale path of bench.py bench_scale at 1024x1024 tri:
    MultigridShellSystem(mesh, mat, dtype=float32, df_operator=True,
    smoother="chebyshev"), stage_forces, a warm-up
@@ -71,7 +80,8 @@ before the last line:
    reported; the first is *_first), fetch_solution. Gates: centre
    deflection within 1e-3 of the Kirchhoff value, final true residual
    <= 9.7e-4 (the JAX package's df floor at this size), a finite
-   history, class-kernel launches >= the count from the code, no
+   history, the 58 inner iterations of every run since the class path
+   came to the card, class-kernel launches >= the count from the code, no
    stencil_spmv<double> launch (no fine operator exists), and
    elem_stiffness<3> launched in the steady reassemble() exactly as often as
    the grid assembly of the coarse levels needs (strips x families). Then
@@ -80,7 +90,8 @@ before the last line:
 6. The pair path: phase 5's sequence with class_operator=False at
    1024x1024 tri (the materialized fine operator; solve_df_refined swaps
    in the class-consistent one). Gates: centre within 1e-3 of the
-   Kirchhoff value, final true residual <= 9.7e-4, a finite history,
+   Kirchhoff value, final true residual <= 9.7e-4, a finite history, 58
+   inner iterations,
    stencil_spmv_sym<double> launches >= the CG iterations,
    stencil_resid_dd<double> and class_stencil<float> (the E term)
    launches equal to the refinement passes, no stencil_spmv<double>
@@ -192,6 +203,10 @@ GRID_GATE = 1e-13  # of max|A|
 # the JAX package's refined 1024^2 tri solve reached this true residual,
 # its df representation floor at that size (BENCH_r05.json)
 JAX_SCALE_FLOOR = 9.7e-4
+# inner CG iterations of the port's refined 1024^2 tri solve on the class
+# and pair paths, the same in every card run since the class path came to
+# the card (PERF.md)
+SCALE_INNER_ITERS = 58
 
 
 class Gates:
@@ -226,6 +241,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time per launch of the kernels whose name contains
+    ``kernel`` over ``reps`` calls of ``fn`` (torch.profiler): the kernel
+    alone, where cuda_ms also holds the host's per-call cost when that is
+    the longer. NaN where the profiler shows none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = count = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and kernel in e.key:
+            us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            count += e.count
+    return us / count / 1e3 if count else float("nan")
 
 
 def plate(et: str, n: int):
@@ -346,13 +383,17 @@ def class_work(cp, dtype, fused):
 def class_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
     """The class-stencil kernel against its plain version on class tables
     built by the port: the f64 operator, the f32 operator, the fused
-    w * (b - A x) form and the E term; one record per (shape, form)."""
+    w * (b - A x) form and the E term; each also through the kernel's
+    all-36-term instance (a copy of the table whose launch arguments name
+    it). One record per (shape, form)."""
+    import dataclasses
+
     import torch.nn.functional as F
 
     from fem_shell_tpu_torch import Material
     from fem_shell_tpu_torch.large import LargeShellSystem
     from fem_shell_tpu_torch.ops.class_matvec import build_class_parts
-    from fem_shell_tpu_torch.ops.class_stencil import class_stencil, class_stencil_plain
+    from fem_shell_tpu_torch.ops.class_stencil import class_stencil, class_stencil_plain, pack_launch
     from fem_shell_tpu_torch.ops.exact_stencil import build_exact_stencil
 
     mat = Material(0.3, 1e7, 0.5)
@@ -378,22 +419,31 @@ def class_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
                  ("fused", cp.hi, x64.float(), w32, b32), ("e", cp.e, x64.float(), None, None))
         for form, tab, x, w, b in forms:
             dtype = x.dtype
+            every = dataclasses.replace(tab, launch=pack_launch(
+                tab.interior.cpu().numpy(), tab.offs2d, tab.masks, all_terms=True))
 
-            def kern():
-                return class_stencil(tab, x, cp.offs2d, cp.masks, cp.nyp, cp.nxp, w=w, b=b)
+            def kern(t=tab):
+                return class_stencil(t, x, w=w, b=b)
 
             def plain():
-                return class_stencil_plain(tab, x, cp.offs2d, cp.nyp, cp.nxp, w=w, b=b)
+                return class_stencil_plain(tab, x, w=w, b=b)
 
-            y, y_plain = kern(), plain()
+            y, y_all, y_plain = kern(), kern(every), plain()
             torch.cuda.synchronize()
             scale = float(y_plain.abs().max())
             err = float((y - y_plain).abs().max()) / scale
+            err_all = float((y_all - y_plain).abs().max()) / scale
             tag = f"{et}{n} K={k} Npad={npad} {form}"
             gates.check(err <= ERR_GATE[dtype] and bool(torch.isfinite(y).all()),
-                        f"class kernel {tag}: max|y-y_plain|/max|y| = {err:.3e} <= {ERR_GATE[dtype]:.0e}")
+                        f"class kernel {tag} (instance {tab.launch.instance}): max|y-y_plain|/max|y| "
+                        f"= {err:.3e} <= {ERR_GATE[dtype]:.0e}")
+            gates.check(err_all <= ERR_GATE[dtype] and bool(torch.isfinite(y_all).all()),
+                        f"class kernel {tag} (all-36 instance {every.launch.instance}): "
+                        f"{err_all:.3e} <= {ERR_GATE[dtype]:.0e}")
             r = reps[n]
             ms = cuda_ms(kern, r)
+            device_ms = kernel_device_ms(kern, r, "class_stencil_kernel")
+            all_ms = cuda_ms(lambda: kern(every), r)
             plain_ms = cuda_ms(plain, max(2, r // 10))
             nbytes, ops = class_work(cp, dtype, w is not None)
             t_bytes, t_ops = nbytes / bandwidth, ops / peaks[dtype]
@@ -406,20 +456,64 @@ def class_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
             library_ms = cuda_ms(lambda: F.conv2d(xg, weight, padding=1), r)
             rec = {
                 "shape": f"{et}{n}", "k": k, "npad": npad, "form": form, "dtype": str(dtype)[6:],
-                "max_abs_err": float((y - y_plain).abs().max()), "rel_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms, "bytes": nbytes, "ops": ops,
-                "achieved_GBps": nbytes / ms / 1e6, **tables,
+                "instance": tab.launch.instance, "max_abs_err": float((y - y_plain).abs().max()),
+                "rel_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "all_terms_ms": all_ms, "all_terms_rel_err": err_all,
+                "bytes": nbytes, "ops": ops, "achieved_GBps": nbytes / ms / 1e6, **tables,
             }
-            print(f"  {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"({rec['bound_by']}) conv2d_ms={library_ms:.4f} rel_err={err:.2e} "
-                  f"({rec['achieved_GBps']:.0f} GB/s)", flush=True)
+            print(f"  {tag}: kernel_ms={ms:.4f} device_ms={device_ms:.4f} all36_ms={all_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({rec['bound_by']}) "
+                  f"conv2d_ms={library_ms:.4f} rel_err={err:.2e} ({rec['achieved_GBps']:.0f} GB/s, "
+                  f"{100 * bound_ms / ms:.1f} % of the bound; device {100 * bound_ms / device_ms:.1f} %)",
+                  flush=True)
             rows.append(rec)
-            del y, y_plain
+            del y, y_all, y_plain
         del cp, x64, w32, b32
         torch.cuda.empty_cache()
     return rows
+
+
+def ptxas_by_kernel(log: str):
+    """{kernel: 'registers | spills | shared memory'} from an nvcc -Xptxas -v
+    log: the 'Used' line and the stack/spill line of each entry function."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = []
+        elif name is not None and ("spill" in ln or "Used" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    return {k: " | ".join(v) for k, v in out.items()}
+
+
+def sass_counts(so_path: str):
+    """{kernel: {"instructions", "fma", "lds", "ldg", "stg"}} from cuobjdump
+    -sass of a built library (static counts; the kernels' loops are fully
+    unrolled), or None where the toolkit has no cuobjdump."""
+    from fem_shell_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", so_path], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            cur = out.setdefault(ln.split("Function :")[1].strip(),
+                                 {"instructions": 0, "fma": 0, "lds": 0, "ldg": 0, "stg": 0})
+        elif cur is not None and "/*" in ln and ";" in ln:
+            op = ln.split("*/", 1)[1].strip().split()
+            if not op:
+                continue
+            opc = op[1] if op[0].startswith("@") and len(op) > 1 else op[0]
+            cur["instructions"] += 1
+            cur["fma"] += opc.startswith(("FFMA", "DFMA"))
+            cur["lds"] += opc.startswith("LDS")
+            cur["ldg"] += opc.startswith("LDG")
+            cur["stg"] += opc.startswith("STG")
+    return out
 
 
 def smooth_field(mesh, nyp, nxp, npad):
@@ -765,14 +859,34 @@ def device_profile(fn):
     }
 
 
+def assembly_times(mg):
+    """Seconds and peak bytes of one assembly of every level of ``mg``:
+    through the grid pipeline (what solve_fused runs) and through the
+    index_add_ scatter (what it ran before)."""
+    out = {}
+    for method, run in (("grid", lambda s: s.assemble_df(method="grid", with_diag=True)),
+                        ("index_add", lambda s: s.assemble())):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for s in mg._systems:
+            run(s)
+        torch.cuda.synchronize()
+        out[f"{method}_s"] = time.perf_counter() - t0
+        out[f"{method}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
 def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
                 jax_iters=None):
     """One main-path run of MultigridShellSystem.solve_fused: launch counts
     are reset just before the measured solve and read just after. With
-    reps > 1 a warm-up solve comes first and reps-1 more are timed; on
-    CUDA one more solve runs under torch.profiler."""
+    reps > 1 a warm-up solve comes first and reps-1 more are timed and held
+    to the measured one bit for bit; on CUDA one more solve runs under
+    torch.profiler."""
     from fem_shell_tpu_torch import Material, MultigridShellSystem
-    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
 
     mesh, rows, fac = plate(et, n)
     forces = rows * fac
@@ -782,31 +896,25 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
     setup_s = time.perf_counter() - t0
     if reps > 1:
         mg.solve_fused(forces, rtol=1e-9, maxiter=400)  # warm-up: library handles, allocator
+    assembly = assembly_times(mg) if cuda else None  # the per-level work solve_fused starts with
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        # assembly alone (the per-level work solve_fused starts with), timed apart
-        t0 = time.perf_counter()
-        for s in mg._systems:
-            s.assemble()
-        torch.cuda.synchronize()
-        assemble_s = time.perf_counter() - t0
-    else:
-        assemble_s = None
-    for dt in stencil_spmv.launches:
-        stencil_spmv.launches[dt] = 0
+    reset_launches()
     t0 = time.perf_counter()
     u = mg.solve_fused(forces, rtol=1e-9, maxiter=400)
     if cuda:
         torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = dict(stencil_spmv.launches)
+    launches = read_launches()
     times = [solve_s]
+    same = True
     for _ in range(reps - 1):
         t0 = time.perf_counter()
-        mg.solve_fused(forces, rtol=1e-9, maxiter=400)
+        again = mg.solve_fused(forces, rtol=1e-9, maxiter=400)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        same = same and torch.equal(again, u)
     peak = torch.cuda.max_memory_allocated() if cuda else None
     prof = device_profile(lambda: mg.solve_fused(forces, rtol=1e-9, maxiter=400)) if cuda else None
     it, nl = mg.last_iters, mg.n_levels
@@ -817,26 +925,34 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
     # iteration matvecs, and 7 per V-cycle (3+3 smoothing sweeps and one
     # residual), the V-cycle applied once before the loop and once per iteration
     want32 = (nl - 1) * (21 + 7 * (it + 1))
-    f32, f64 = launches[torch.float32], launches[torch.float64]
+    f32, f64 = launches["spmv_f32"], launches["spmv_f64"]
+    want_elem = elem_launch_count(mg)
+    key_elem = "elem3" if et == "t" else "elem4"
     gates.check(tuple(u.shape) == (mesh.n_nodes, 6) and bool(torch.isfinite(u).all()),
                 f"solve {tag}: finite displacements [{mesh.n_nodes}, 6]")
     gates.check(err < gate_rel, f"solve {tag}: centre w {w:.7f} vs {golden}: rel err {err:.2e} < {gate_rel:.0e}")
     gates.check(mg.last_residual < 1e-9, f"solve {tag}: residual {mg.last_residual:.2e} < 1e-9")
     if jax_iters is not None:
         gates.check(abs(it - jax_iters) <= 1, f"solve {tag}: {it} iterations vs JAX f64 {jax_iters} (+-1)")
+    if reps > 1:
+        gates.check(same, f"solve {tag}: {reps} solves return bitwise-equal displacements")
     if cuda:
         gates.check(f64 >= it and f32 >= want32,
                     f"solve {tag}: launches f64 {f64} >= {it}, f32 {f32} >= {want32}")
+        gates.check(launches[key_elem] == want_elem > 0 and launches["class_f32"] + launches["class_f64"] == 0,
+                    f"solve {tag}: elem_stiffness launches {launches[key_elem]} == {want_elem} "
+                    f"(grid assembly of every level), no class_stencil launch")
     rec = {
         "case": tag, "levels": nl, "iters": it, "residual": mg.last_residual, "center_w": w,
-        "rel_err": err, "setup_s": setup_s, "assemble_s": assemble_s, "solve_fused_s": times,
-        "launches_f32": f32, "launches_f64": f64, "expected_f32": want32,
+        "rel_err": err, "setup_s": setup_s, "assembly": assembly, "solve_fused_s": times,
+        "bitwise_repeat": same if reps > 1 else None, "launches_f32": f32, "launches_f64": f64,
+        "launches": launches, "expected_f32": want32, "expected_elem": want_elem,
         "peak_mem_bytes": peak, "profile": prof,
     }
-    print(f"  {tag}: levels={nl} iters={it} residual={mg.last_residual:.2e} w={w:.7f} "
-          f"rel_err={err:.2e} setup_s={setup_s:.3f} assemble_s={assemble_s} "
-          f"solve_fused_s={['%.4f' % t for t in times]} launches f32={f32} f64={f64} "
-          f"peak_mem={peak}", flush=True)
+    print(f"  {tag}: levels={nl} iters={it} residual={mg.last_residual:.2e} w={w:.17g} "
+          f"rel_err={err:.2e} setup_s={setup_s:.3f} assembly={assembly} "
+          f"solve_fused_s={['%.4f' % t for t in times]} bitwise_repeat={rec['bitwise_repeat']} "
+          f"launches={launches} peak_mem={peak}", flush=True)
     if prof is not None:
         print(f"  {tag} profile: wall_ms={prof['wall_ms']:.1f} device_busy_ms={prof['device_busy_ms']:.1f} "
               f"idle_share={prof['idle_share']} stencil_spmv_ms={prof['stencil_spmv_ms']:.1f}", flush=True)
@@ -874,13 +990,11 @@ def read_launches():
 
 
 def elem_launch_count(mg):
-    """elem_stiffness launches of one assembly of mg's levels: with a big
-    fine mesh every materialized level is assembled by the grid pipeline,
-    one launch per strip and element family; none otherwise."""
+    """elem_stiffness launches of one assembly of mg's levels: every
+    materialized level is assembled by the grid pipeline, one launch per
+    strip and element family."""
     from fem_shell_tpu_torch.ops.assemble_grid import family_corners, strip_bounds
 
-    if not mg._big:
-        return 0
     fams = len(family_corners(mg.grid.elem_type, mg.grid.ul_lr))
     first = 1 if mg._cdf is not None else 0  # the class level is not assembled
     return sum(len(strip_bounds(lvl.nyp - 1, max(1, mg._df_strip_nodes // lvl.nxp))) * fams
@@ -974,6 +1088,9 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
     gates.check(err < gate_rel, f"{tag}: centre w {w:.7f} vs {golden}: rel err {err:.2e} < {gate_rel:.0e}")
     gates.check(hist[-1] <= JAX_SCALE_FLOOR,
                 f"{tag}: final true residual {hist[-1]:.3e} <= {JAX_SCALE_FLOOR:.1e}")
+    if steady:
+        gates.check(mg.last_iters == SCALE_INNER_ITERS,
+                    f"{tag}: {mg.last_iters} inner iterations == {SCALE_INNER_ITERS}")
     if pair:
         cg, passes, want32 = pair_launch_counts(mg)
         cg_key = "sym" if mg._fine_sym is not None else "spmv_f64"
@@ -1001,7 +1118,7 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
     want_elem = elem_launch_count(mg)
     key_elem = "elem3" if et == "t" else "elem4"
     expected["elem_stiffness"] = want_elem
-    gates.check(launches[key_elem] == want_elem and (want_elem > 0 or not steady),
+    gates.check(launches[key_elem] == want_elem > 0,
                 f"{tag}: elem_stiffness launches {launches[key_elem]} == {want_elem} "
                 f"({'the steady reassemble' if steady else 'the constructor'}'s grid assembly)")
     prof = device_profile(lambda: mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)) \
@@ -1063,6 +1180,12 @@ def main() -> int:
     kern = kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
 
     print("phase 2b: class-stencil kernel against its plain version", flush=True)
+    class_ptxas = ptxas_by_kernel(built["class_stencil"]["log"])
+    class_sass = sass_counts(built["class_stencil"]["path"])
+    for kname, line in class_ptxas.items():
+        print(f"  ptxas {kname}: {line}", flush=True)
+    for kname, counts in (class_sass or {}).items():
+        print(f"  sass {kname}: {counts}", flush=True)
     ckern = class_kernel_phase(gates, shapes, {64: 200, 1024: 50}, bandwidth, peaks)
 
     print("phase 2c: pair-path kernels against their plain versions", flush=True)
@@ -1096,10 +1219,10 @@ def main() -> int:
     for dtype, meta in KERNELS.items():
         mine = [r for r in kern if r["dtype"] == str(dtype)[6:]]
         at = mine[-1]  # the scale shape: the largest the main path gives the kernel
-        key = "launches_f32" if dtype == torch.float32 else "launches_f64"
+        key = "spmv_f32" if dtype == torch.float32 else "spmv_f64"
         entries.append({
             "name": meta["name"], "route": "cuda", "source": SOURCE, "replaces": meta["replaces"],
-            "launches": sum(r[key] for r in runs),
+            "launches": sum(r["launches"][key] for r in runs),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["rel_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -1122,8 +1245,10 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"],
             "at": f"{at['shape']} K={at['k']} Npad={at['npad']} {at['form']}",
-            "by_shape": [{k: r[k] for k in ("shape", "form", "ms", "plain_ms", "bound_ms", "library_ms")}
-                         for r in mine],
+            "by_shape": [{k: r[k] for k in ("shape", "form", "instance", "ms", "device_ms", "all_terms_ms",
+                                            "plain_ms", "bound_ms", "library_ms")} for r in mine],
+            "ptxas": {k: v for k, v in class_ptxas.items()
+                      if ("IfLi" if dtype == torch.float32 else "IdLi") in k},
         })
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
     for entry in entries[:2]:  # the scale and pair paths' assembled levels run stencil_spmv
@@ -1150,7 +1275,7 @@ def main() -> int:
         key = f"elem{m}"
         entries.append({
             "name": meta["name"], "route": "cuda", "source": ELEM_SOURCE, "replaces": meta["replaces"],
-            "launches": sum(r["launches"][key] for r in class_runs + pair_runs + grids),
+            "launches": sum(r["launches"][key] for r in runs + class_runs + pair_runs + grids),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["rel_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -1163,7 +1288,8 @@ def main() -> int:
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "ptxas": ptxas, "longdouble_eps": float(np.finfo(np.longdouble).eps),
+        {"card": smi, "build_s": build_s, "ptxas": ptxas, "class_ptxas": class_ptxas,
+         "class_sass": class_sass, "longdouble_eps": float(np.finfo(np.longdouble).eps),
          "kernels": kern, "class_kernels": ckern, "pair_kernels": pkern, "elem_kernels": ekern,
          "solves": runs, "class_solves": class_runs, "pair_solves": pair_runs, "grid": grids},
         indent=1))

@@ -24,9 +24,7 @@ Two configurations are ported:
   constructor (the scale configuration): on a uniform grid the fine
   level is the matrix-free class-table operator (ops/class_matvec.py;
   no fine operator is assembled or stored), coarse levels are assembled
-  in f64 and kept in f32. From 65,536 fine elements every assembled level
-  comes from the scatter-free grid pipeline (ops/assemble_grid.py, the
-  element kernel ops/elem_stiffness.py on the card). ``solve_df`` runs
+  in f64 and kept in f32. ``solve_df`` runs
   f64 PCG over the fine operator, ``solve_df_refined`` adds iterative
   refinement against the longdouble class tables; ``stage_forces`` /
   ``return_device`` / ``fetch_solution`` keep the fields on the device,
@@ -34,6 +32,11 @@ Two configurations are ported:
   ``ops/class_stencil.class_stencil`` (f64 for the CG and the residual,
   f32 with the fused smoother epilogue in the V-cycle); coarse levels
   through ``stencil_spmv`` in f32.
+- Every assembled level, on either configuration and at every size, comes
+  from the scatter-free grid pipeline (ops/assemble_grid.py, the element
+  kernel ops/elem_stiffness.py on the card), so each assembly is bitwise
+  repeatable. The JAX package takes that pipeline from 65,536 fine
+  elements and scatters below (ROADMAP.md Queue 3, "Differences").
 - With ``class_operator=False``, or on a non-uniform grid, the fine
   level is the materialized f64 operator (the pair path). Its CG matvec
   runs through ``ops/stencil_spmv_sym.stencil_spmv_sym`` from the
@@ -269,10 +272,9 @@ class MultigridShellSystem:
         otherwise. ``sym_spmv`` keeps the materialized fine operator's
         upper half for the CG matvec (symmetric storage); None = on from
         ``large.GRID_MIN_ELEMENTS`` (65,536) elements, the JAX package's
-        threshold, on any device. From that many fine elements every
-        level of the df_operator hierarchy is assembled by the
+        threshold, on any device. Every assembled level is built by the
         scatter-free grid pipeline (``LargeShellSystem.assemble_df``,
-        ``strip_nodes`` nodes per strip), as in the JAX package.
+        ``strip_nodes`` nodes per strip) at every mesh size.
         ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host.
         Each level's smoother is damped with omega = 4/(3 lambda_max)."""
         if isinstance(mesh, MeshGenParams):
@@ -394,13 +396,13 @@ class MultigridShellSystem:
         """Build (or rebuild) every df_operator level: the fine class
         operator, or the materialized f64 fine operator; coarse levels
         assembled in f64 and kept in f32 with the diagonal of the f64
-        values (the JAX package's df-assembly hi part). Over a fine mesh of
-        ``large.GRID_MIN_ELEMENTS`` elements or more every assembled level
-        goes through the grid pipeline (the JAX package's rule,
-        fem_shell_tpu/mg.py:658-662), else ``assemble_df`` picks per
-        level; per-level damping from the power iteration; the coarsest level's factor; the fine
-        operator's upper half (``_build_fine_sym``). Each old operator is
-        released before its level is rebuilt."""
+        values (the JAX package's df-assembly hi part), every assembled
+        level through the grid pipeline (the JAX package does so from
+        ``large.GRID_MIN_ELEMENTS`` fine elements, fem_shell_tpu/mg.py:658-662,
+        and scatters below); per-level damping from the power iteration;
+        the coarsest level's factor; the fine operator's upper half
+        (``_build_fine_sym``). Each old operator is released before its
+        level is rebuilt."""
         self._cdf = self._fine64 = self._fine_sym = None
         self._class_pair_done = False
         for l, sys_l in enumerate(self._systems):
@@ -427,8 +429,8 @@ class MultigridShellSystem:
                     inv_diag=torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)),
                 )
             else:
-                v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes,
-                                             method="grid" if self._big else "auto", with_diag=True)
+                v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
+                                             with_diag=True)
                 if l == 0:
                     self._fine64 = v64
                 lvl = dataclasses.replace(
@@ -581,15 +583,23 @@ class MultigridShellSystem:
         """Assemble every level in f64, build the f32 V-cycle (Jacobi
         diagonals, power-iteration damping, coarse Cholesky) and run f64
         PCG over the fine operator. Returns (x [6, Npad] f64, iters,
-        relative residual)."""
+        relative residual).
+
+        Every level is assembled by the scatter-free grid pipeline
+        (``assemble_df(method="grid")``) from each system's own
+        coordinates, at every mesh size: every sum there has one order, so
+        two calls give the same operator bit for bit, as the JAX package's
+        deterministic scatter does. (``index_add_`` on CUDA sums colliding
+        slots in no fixed order.) ``coords_list`` and ``tables_list``, the
+        JAX signature's traced arguments, are not used."""
         if arith != "f64":
             raise ValueError(f"arith={arith!r}: the port runs arith='f64'")
         levels32 = []
         fine64 = None
         for l, sys_l in enumerate(self._systems):
             base = self.levels[l]
-            v64 = sys_l._assemble_impl(coords_list[l], tables_list[l])
-            diag = soa_diagonal(v64, offsets=base.offsets)
+            v64, diag = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
+                                          with_diag=True)
             if l == 0:
                 fine64 = v64
             inv_diag = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag))

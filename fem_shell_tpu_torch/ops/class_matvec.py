@@ -56,10 +56,11 @@ from fem_shell_tpu_torch.ops.exact_stencil import _P, ExactStencil
 class ClassParts:
     """The class-table operator on one device: three coefficient sets
     (``hi`` = t0 in f32, ``a64`` = fl64(t0 + t1), ``e`` = t2 in f32), the
-    grid, and the structural mask the kernel skips by: ``masks`` [K]
-    uint64 (host), bit a*6+b of masks[s] set where (a, b, s) has a nonzero
-    interior scalar in any of t0/t1/t2 (the JAX package's ``nzmask``) or
-    a nonzero band delta."""
+    grid, and the structural mask that picks the kernel's term pattern:
+    ``masks`` [K] uint64 (host), bit a*6+b of masks[s] set where (a, b, s)
+    has a nonzero interior scalar in any of t0/t1/t2 (the JAX package's
+    ``nzmask``) or a nonzero band delta. Each table carries the offsets,
+    the masks and its packed launch arguments."""
 
     hi: ClassTable
     a64: ClassTable
@@ -145,15 +146,19 @@ def class_parts_of(ih, il, i2, bands, offs2d, nyp: int, nxp: int, npad: int, dev
         for part in band:
             nz = nz | (np.asarray(part) != 0).any(axis=(3, 4))
     masks = _masks(nz)
+    offs2d = tuple(tuple(int(v) for v in o) for o in offs2d)
 
     def f64(h, l):
         return np.asarray(h, np.float64) + np.asarray(l, np.float64)
 
+    def table(interior, parts):
+        return ClassTable.from_numpy(interior, *parts, offs2d=offs2d, masks=masks, device=device)
+
     return ClassParts(
-        hi=ClassTable.from_numpy(ih, *(bd[0] for bd in bands), device=device),
-        a64=ClassTable.from_numpy(f64(ih, il), *(f64(bd[0], bd[1]) for bd in bands), device=device),
-        e=ClassTable.from_numpy(i2, *(bd[2] for bd in bands), device=device),
-        offs2d=tuple(tuple(int(v) for v in o) for o in offs2d),
+        hi=table(ih, [bd[0] for bd in bands]),
+        a64=table(f64(ih, il), [f64(bd[0], bd[1]) for bd in bands]),
+        e=table(i2, [bd[2] for bd in bands]),
+        offs2d=offs2d,
         nyp=int(nyp),
         nxp=int(nxp),
         npad=int(npad),
@@ -161,28 +166,24 @@ def class_parts_of(ih, il, i2, bands, offs2d, nyp: int, nxp: int, npad: int, dev
     )
 
 
-def _apply(cp: ClassParts, table: ClassTable, x, w=None, b=None):
-    return class_stencil(table, x, cp.offs2d, cp.masks, cp.nyp, cp.nxp, w=w, b=b)
-
-
 def class_matvec_f64(cp: ClassParts, x):
     """y = A_df x in f64, A_df = fl64(t0 + t1) per class coefficient;
     x/y [6, npad] f64. The counterpart of the JAX package's
     ``class_matvec_df``: the fine CG operator."""
-    return _apply(cp, cp.a64, x)
+    return class_stencil(cp.a64, x)
 
 
 def class_matvec_f32(cp: ClassParts, x, w=None, b=None):
     """y = A_hi x in f32 (t0 table only): the V-cycle level-0 smoother and
     power-iteration operator. With ``w`` and ``b``: y = w * (b - A_hi x)
     in the same kernel pass (the smoother's correction)."""
-    return _apply(cp, cp.hi, x, w=w, b=b)
+    return class_stencil(cp.hi, x, w=w, b=b)
 
 
 def class_ecorr(cp: ClassParts, x32):
     """y = E x in f32, E = A_true - A_df (the t2-class third term), on
     x rounded to f32: the refinement residual's correction term."""
-    return _apply(cp, cp.e, x32)
+    return class_stencil(cp.e, x32)
 
 
 @dataclasses.dataclass
@@ -216,12 +217,14 @@ def build_pair_ecorr(st: ExactStencil, device=None) -> PairECorr:
     nz = interior != 0
     for band in bands:
         nz = nz | (band != 0).any(axis=(3, 4))
+    offs2d = tuple(tuple(int(v) for v in o) for o in st.offs2d)
+    masks = _masks(nz)
     return PairECorr(
-        table=ClassTable.from_numpy(interior, *bands, device=dev),
-        offs2d=tuple(tuple(int(v) for v in o) for o in st.offs2d),
+        table=ClassTable.from_numpy(interior, *bands, offs2d=offs2d, masks=masks, device=dev),
+        offs2d=offs2d,
         nyp=int(st.nyp),
         nxp=int(st.nxp),
-        masks=_masks(nz),
+        masks=masks,
     )
 
 
@@ -229,4 +232,4 @@ def pair_ecorr(ec: PairECorr, x32):
     """y = E x in f32 on x rounded to f32 ([6, npad]): the pair path's
     refinement residual correction, one class-stencil launch (the JAX
     package's ``class_stencil_matvec_f32`` on its t2 table)."""
-    return class_stencil(ec.table, x32, ec.offs2d, ec.masks, ec.nyp, ec.nxp)
+    return class_stencil(ec.table, x32)

@@ -39,7 +39,14 @@ from fem_shell_tpu_torch.convert import (
     exact_stencil_from_jax,
 )
 from fem_shell_tpu_torch.ops import class_matvec as tcm
-from fem_shell_tpu_torch.ops.class_stencil import class_stencil, class_stencil_plain
+from fem_shell_tpu_torch.ops.class_stencil import (
+    ALL_TERMS,
+    FLAT_PATTERN,
+    ClassTable,
+    class_stencil,
+    class_stencil_plain,
+    pack_launch,
+)
 
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 CASES = [("t", 12), ("q", 12), ("t", 17)]
@@ -221,12 +228,70 @@ def test_fused_form_and_ecorr_vs_jax(built, case):
 def test_wrapper_checks_and_cpu_route(built):
     _, st, _, _, cpt, _, npad = built[("q", 12)]
     x = torch.zeros((6, npad), dtype=torch.float64)
-    args = (cpt.offs2d, cpt.masks, cpt.nyp, cpt.nxp)
-    y = class_stencil(cpt.a64, x, *args)
-    torch.testing.assert_close(y, class_stencil_plain(cpt.a64, x, cpt.offs2d, cpt.nyp, cpt.nxp))
+    y = class_stencil(cpt.a64, x)
+    torch.testing.assert_close(y, class_stencil_plain(cpt.a64, x))
     with pytest.raises(TypeError):
-        class_stencil(cpt.hi, x, *args)  # f32 table, f64 x
+        class_stencil(cpt.hi, x)  # f32 table, f64 x
     with pytest.raises(ValueError, match="both"):
-        class_stencil(cpt.a64, x, *args, w=x)
+        class_stencil(cpt.a64, x, w=x)
     with pytest.raises(ValueError, match="Npad"):
-        class_stencil(cpt.a64, x[:, : cpt.nyp * cpt.nxp - 1].contiguous(), *args)
+        class_stencil(cpt.a64, x[:, : cpt.nyp * cpt.nxp - 1].contiguous())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_packed_launch_arguments(built, case):
+    """Each table's launch arguments, packed once: the interior
+    coefficients by stencil slot (dy + 1) * 3 + (dx + 1) in the table's
+    type (f64 for the CG operator, f32 for t0 and E), zeros in the slots
+    the stencil lacks, the slot-to-offset map, the masks and offsets of
+    the parts, and the flat-shell instance of the stencil's shape (tri
+    ul_lr=False: 2; quad, all nine slots: 0), the all-36 instance on
+    request. The pair path's E table likewise. The CPU route is the plain
+    version, bit for bit, fused form included."""
+    _, st, _, _, cpt, _, npad = built[case]
+    ec = tcm.build_pair_ecorr(st, device="cpu")
+    slots = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    shape = 0 if case[0] == "q" else 2
+    for tab, dt in ((cpt.hi, np.float32), (cpt.a64, np.float64), (cpt.e, np.float32),
+                    (ec.table, np.float32)):
+        lp = tab.launch
+        assert lp.coef.dtype == dt and lp.coef.shape == (9, 36) and lp.s_of.dtype == np.int32
+        assert (lp.coef_ptr, lp.s_of_ptr) == (lp.coef.ctypes.data, lp.s_of.ctypes.data)
+        assert tab.offs2d == cpt.offs2d and tab.interior.dtype == torch.from_numpy(lp.coef).dtype
+        for q, o in enumerate(slots):
+            if o in tab.offs2d:
+                s = tab.offs2d.index(o)
+                assert lp.s_of[q] == s
+                np.testing.assert_array_equal(lp.coef[q], tab.interior[s].numpy().reshape(36))
+            else:
+                assert lp.s_of[q] == -1 and not lp.coef[q].any()
+        assert lp.instance == shape  # flat pattern: every mask inside it
+        assert all(int(m) & ~FLAT_PATTERN == 0 for m in tab.masks)
+    np.testing.assert_array_equal(cpt.hi.masks, cpt.masks)
+    np.testing.assert_array_equal(ec.table.masks, ec.masks)
+    assert pack_launch(cpt.hi.interior.numpy(), cpt.offs2d, cpt.masks, all_terms=True).instance \
+        == ALL_TERMS
+    with pytest.raises(ValueError, match="order"):
+        pack_launch(cpt.hi.interior.numpy(), cpt.offs2d[::-1], cpt.masks)
+
+    rng = np.random.default_rng(8)
+    for tab in (cpt.hi, cpt.a64):
+        dt = tab.interior.dtype
+        x, w, b = (torch.from_numpy(rng.standard_normal((6, npad))).to(dt) for _ in range(3))
+        assert torch.equal(class_stencil(tab, x), class_stencil_plain(tab, x))
+        assert torch.equal(class_stencil(tab, x, w=w, b=b), class_stencil_plain(tab, x, w=w, b=b))
+
+
+def test_masks_must_cover_the_table(built):
+    """A table whose masks leave out one of its nonzeros is refused when it
+    is built (the flat instance would drop it)."""
+    _, st, _, _, cpt, _, _ = built[("t", 12)]
+    nyp, nxp = cpt.nyp, cpt.nxp
+    bands = cpt.hi.bands.numpy()
+    parts = (bands[..., :nxp], bands[..., nxp : 2 * nxp], bands[..., 2 * nxp : 2 * nxp + nyp],
+             bands[..., 2 * nxp + nyp :])
+    interior = cpt.hi.interior.numpy().copy()
+    ClassTable.from_numpy(interior, *parts, offs2d=cpt.offs2d, masks=cpt.masks, device="cpu")
+    interior[0, 0, 2] = 1.0  # membrane row, plate column: outside every mask
+    with pytest.raises(ValueError, match="masks"):
+        ClassTable.from_numpy(interior, *parts, offs2d=cpt.offs2d, masks=cpt.masks, device="cpu")

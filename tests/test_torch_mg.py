@@ -141,6 +141,34 @@ def test_solve_fused_matches_jax_f64(et, n):
         assert abs(float(got[jmesh.n_nodes // 2, 2]) - 0.106460) < 5e-5
 
 
+@pytest.mark.parametrize("et", ["q", "t"])
+def test_solve_fused_never_scatters(monkeypatch, et):
+    """solve_fused assembles every level through the grid pipeline, never
+    through the index_add_ scatter (assemble_soa made to raise), one
+    assemble_grid call per level and solve; the result holds the JAX f64
+    fused solve's tolerances (+-1 iteration, 1e-8 of max|u|), and a
+    second solve repeats the first bit for bit."""
+    from fem_shell_tpu_torch import large as tlarge
+
+    def refuse(*args, **kw):
+        raise AssertionError("solve_fused reached assemble_soa")
+
+    calls = []
+    real = tlarge.assemble_grid
+    monkeypatch.setattr(tlarge, "assemble_soa", refuse)
+    monkeypatch.setattr(tlarge, "assemble_grid", lambda *a, **kw: calls.append(a[0].nxp) or real(*a, **kw))
+    jmesh, rows, fac = _mesh(et, 16)
+    forces = rows * fac
+    jsys = jmg.MultigridShellSystem(jmesh, JMAT, dtype=jnp.float64, assemble=False)
+    ref = jsys.solve_fused(forces, rtol=1e-9, maxiter=400, arith="f64")
+    tsys = tmg.MultigridShellSystem(mesh_from_jax(jmesh), material_from_jax(JMAT), device="cpu")
+    got = tsys.solve_fused(forces, rtol=1e-9, maxiter=400)
+    assert calls == [16 // 2**lvl + 1 for lvl in range(tsys.n_levels)]
+    assert abs(tsys.last_iters - jsys.last_iters) <= 1 and tsys.last_residual < 1e-9
+    assert np.abs(got.numpy() - ref).max() <= 1e-8 * np.abs(ref).max()
+    assert torch.equal(tsys.solve_fused(forces, rtol=1e-9, maxiter=400), got)
+
+
 def test_unported_paths_raise():
     jmesh, rows, fac = _mesh("q", 8)
     mesh, mat = mesh_from_jax(jmesh), material_from_jax(JMAT)

@@ -1,10 +1,11 @@
 """The grid-assembly slice as a whole, on the CPU at 32^2: a scale system
-(dtype=float32, df_operator=True, smoother="chebyshev") over a fine mesh
-of at least ``large.GRID_MIN_ELEMENTS`` elements assembles every level
-through ``ops/assemble_grid.assemble_grid`` (the JAX package's rule,
-fem_shell_tpu/mg.py:658-662). The threshold is lowered with monkeypatch so
-that a 32^2 plate counts as big; the same system built below the
-threshold (every level through the index_add_ assembly) is the reference.
+(dtype=float32, df_operator=True, smoother="chebyshev") assembles every
+level through ``ops/assemble_grid.assemble_grid``, over a fine mesh of at
+least ``large.GRID_MIN_ELEMENTS`` elements (the JAX package's rule,
+fem_shell_tpu/mg.py:658-662) and below it (where the JAX package
+scatters). The threshold is lowered with monkeypatch so that a 32^2 plate
+counts as big; the same system with every level forced through the
+index_add_ assembly (``assemble_df(method="strip")``) is the reference.
 
 The pair path (class_operator=False) then refines to the port's pinned
 numbers (ROADMAP.md Queue 3: tri 25 inner iterations, centre
@@ -50,20 +51,30 @@ def _snapshot(mg, forces):
     return out
 
 
+def _index_add_system(mesh, **kw):
+    """The system with every level assembled by index_add_: assemble_df
+    forced to method="strip" while the constructor runs."""
+    real = tlarge.LargeShellSystem.assemble_df
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlarge.LargeShellSystem, "assemble_df",
+                   lambda self, *a, **k: real(self, *a, **{**k, "method": "strip"}))
+        return _system(mesh, **kw)
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """Per plate: the pair path built with index_add_ ("ref") and through
-    the grid pipeline ("grid", the threshold lowered, assemble_grid
-    calls counted in the constructor and in reassemble()); the class path
-    through the grid pipeline."""
+    """Per plate: the pair path built with index_add_ ("ref"), below the
+    threshold ("small", assemble_grid calls counted in the constructor)
+    and through the grid pipeline over a lowered threshold ("grid",
+    assemble_grid calls counted in the constructor and in reassemble());
+    the class path through the grid pipeline."""
     out = {}
     for et in "tq":
         jmesh, rows, fac = jgenerate(JParams(et, 32, 32, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2,
                                              et == "q", "z"))
         mesh, forces = mesh_from_jax(jmesh), rows * fac
-        r = {"ref": _snapshot(_system(mesh, class_operator=False, sym_spmv=True), forces)}
+        r = {"ref": _snapshot(_index_add_system(mesh, class_operator=False, sym_spmv=True), forces)}
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(tlarge, "GRID_MIN_ELEMENTS", 1024)
             calls = []
             real = tlarge.assemble_grid
 
@@ -72,6 +83,11 @@ def runs():
                 return real(*args, **kw)
 
             mp.setattr(tlarge, "assemble_grid", counted)
+            small = _system(mesh, class_operator=False)
+            r["small_calls"] = list(calls)
+            r["small"] = _snapshot(small, forces)
+            del calls[:]
+            mp.setattr(tlarge, "GRID_MIN_ELEMENTS", 1024)
             mg = _system(mesh, class_operator=False)
             r["ctor_calls"] = list(calls)
             r["grid"] = _snapshot(mg, forces)
@@ -130,3 +146,19 @@ def test_grid_built_pair_solve_keeps_pinned_numbers(runs, et):
     assert got["w"] == pytest.approx(ref["w"], rel=1e-12)
     assert got["w"] == pytest.approx(PINNED[et]["w"], rel=1e-9)
     assert got["hist"][-1] < 1e-9 and np.all(np.isfinite(got["hist"]))
+
+
+@pytest.mark.parametrize("et", ["t", "q"])
+def test_small_system_assembles_every_level_through_the_grid_pipeline(runs, et):
+    """Below the threshold (the 32^2 plate, 1024 / 2048 elements) every
+    level still comes from assemble_grid, so the assembly is bitwise
+    repeatable; full storage as the JAX package's default there; the
+    pinned pair iterations (25 tri / 15 quad) and centre deflection."""
+    r = runs[et]
+    small = r["small"]
+    assert r["small_calls"] == [32 // 2**lvl + 1 for lvl in range(r["n_levels"])]
+    assert not small["big"] and not small["sym"]
+    assert small["inner"] == PINNED[et]["inner"]
+    assert small["w"] == pytest.approx(PINNED[et]["w"], rel=1e-9)
+    assert torch.equal(small["fine64"], r["grid"]["fine64"])
+    assert small["hist"][-1] < 1e-9 and np.all(np.isfinite(small["hist"]))

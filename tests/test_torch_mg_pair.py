@@ -264,8 +264,11 @@ def test_old_fine_operator_released_before_the_new_one(monkeypatch):
     """Two fine operators never coexist: the assembled operator, its f32
     level-0 values and its upper half are unreferenced when the class
     pair is generated, and the class pair's are unreferenced when
-    reassemble() assembles the fine level again."""
-    _check_release_order(monkeypatch, "assemble")
+    reassemble() assembles the fine level again (assemble_df, the grid
+    pipeline at every size); the index_add_ assembly is never called."""
+    monkeypatch.setattr(tlarge.LargeShellSystem, "assemble",
+                        lambda self: pytest.fail("the index_add_ assembly was called"))
+    _check_release_order(monkeypatch, "assemble_df")
 
 
 def test_old_fine_operator_released_before_the_new_one_on_the_grid_path(monkeypatch):
