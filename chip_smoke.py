@@ -8,7 +8,9 @@ before the last line:
 
 1. Device: CUDA is required (no fallback). Prints the card's name and
    power limit, asserts TF32 is off, builds every CUDA kernel from
-   fem_shell_tpu_torch/csrc.
+   fem_shell_tpu_torch/csrc, and prints the ptxas line and the SASS
+   counts of both element-stiffness instances; elem_stiffness<4> must
+   spill nothing.
 2. Kernels against their plain PyTorch versions on the card, on operators
    assembled by the port: Test-G 64x64 quad (K=9) and tri (K=7), and the
    1024x1024 tri scale size, in f32 and f64. Error gate relative to
@@ -54,12 +56,17 @@ before the last line:
    warped out of plane (z = 0.3 sin x cos 0.7y, so the local frames turn).
    Error gate ELEM_GATE of each element's max|ke|. 200 warped elements per
    family are also held against the numpy-longdouble element of
-   ops/elements_ld.py, at the same gate. Times with CUDA events: the
-   kernel over a whole level (the sum of its launches), the plain version,
-   and the bound (the bytes of xyz and ke over the datasheet bandwidth, or
-   the operations counted from the kernel's source over the f64 vector
-   peak, whichever is larger). No single library call computes a shell
-   element stiffness, so there is no library time.
+   ops/elements_ld.py, at the same gate. Two launches on a level's first
+   strip must be equal bit for bit, and the Quad-4 ke equal to its
+   transpose (the kernel writes each node-pair block's transpose from the
+   same registers). Times with CUDA events: the kernel over a whole level
+   (the sum of its launches), the plain version, and the bound (the bytes
+   of xyz and ke over the datasheet bandwidth, or the operations counted
+   from the reference math over the f64 vector peak, whichever is
+   larger); beside them the kernel's device time per launch from
+   torch.profiler (at 64x64 the events hold the host's per-call cost). No
+   single library call computes a shell element stiffness, so there is no
+   library time.
 3. Test-G, quad and tri at 64x64 (bench.py parameters, rtol 1e-9,
    maxiter 400) through MultigridShellSystem(...).solve_fused: centre
    deflection against the thesis goldens (relative error < 1e-4),
@@ -70,8 +77,11 @@ before the last line:
    level is timed apart, through the grid pipeline (the path's) and
    through index_add_ (the path's assembly before the grid pipeline).
 4. Scale: the same program at 1024x1024 tri (2,097,152 elements,
-   6,303,750 DOF, 7 levels), centre deflection against the analytic
-   Kirchhoff value at relative error < 1e-3, two solves bitwise equal.
+   6,303,750 DOF, 7 levels) and quad (1,048,576 elements, the same DOF;
+   every level's elem_stiffness<4> launches on the main path), centre
+   deflection against the analytic Kirchhoff value at relative error <
+   1e-3, two solves bitwise equal, elem_stiffness launches as phase 3
+   counts them; iterations and peak memory recorded.
 5. The scale path of bench.py bench_scale at 1024x1024 tri:
    MultigridShellSystem(mesh, mat, dtype=float32, df_operator=True,
    smoother="chebyshev"), stage_forces, a warm-up
@@ -179,8 +189,10 @@ PAIR_KERNELS = {
 SYM_GATE = 1e-13  # of max|y|: f64, another summation order than the plain version
 RESID_GATE = 1e-15  # of the term scale: both sum in double-double
 ELEM_KERNELS = {
-    3: {"name": "elem_stiffness<3>", "replaces": "fem_shell_tpu/ops/pallas_elem.py:627"},
-    4: {"name": "elem_stiffness<4>", "replaces": "fem_shell_tpu/ops/pallas_elem.py:627"},
+    3: {"name": "elem_stiffness<3>", "replaces": "fem_shell_tpu/ops/pallas_elem.py:627",
+        "kernel": "tri_stiffness_kernel"},
+    4: {"name": "elem_stiffness<4>", "replaces": "fem_shell_tpu/ops/pallas_elem.py:627",
+        "kernel": "quad_stiffness_kernel"},
 }
 ELEM_SOURCE = "fem_shell_tpu_torch/csrc/elem_stiffness.cu"
 # of each element's max|ke|, kernel against the plain version and against
@@ -191,9 +203,12 @@ ELEM_SOURCE = "fem_shell_tpu_torch/csrc/elem_stiffness.cu"
 # version and 4.4e-13 against longdouble (both versions alike; flat
 # elements 1.7e-16). 1e-12 covers that with a margin of 2.3.
 ELEM_GATE = 1e-12
-# f64 operations per element, counted from csrc/elem_stiffness.cu's source
-# (an add, multiply, divide, square root or comparison one each, an fma
-# two), before the compiler folds the constant quadrature terms. Tri-3:
+# f64 operations per element of the reference math, counted from the
+# one-thread-per-element form of csrc/elem_stiffness.cu (an add, multiply,
+# divide, square root or comparison one each, an fma two), before the
+# compiler folds the constant quadrature terms; the Quad-4 kernel's eight
+# threads per element repeat the frame and the B columns, which is not
+# counted, so the bound reads the same work whatever implements it. Tri-3:
 # frame 67 + membrane 257 + plate 3 x (609 Specht B + 135 Y B + 450
 # B^T D B) + 79 + 9 node-pair blocks x 365 (drilling term, four 3x3
 # rotations R^T L R) = 7270. Quad-4: frame 126 + membrane 4 x 480 + plate
@@ -737,18 +752,29 @@ def elem_kernel_phase(gates, cases, bandwidth, peaks, device="cuda"):
             for x in xyzs:
                 elem_stiffness_plain(x, dm, dp, t)
 
+        # two launches on the first strip bit for bit; Quad-4 writes each
+        # block's transpose from the same registers, so its ke is symmetric
+        ke, again = elem_stiffness(xyzs[0], dm, dp, t), elem_stiffness(xyzs[0], dm, dp, t)
+        repeat, symmetric = torch.equal(ke, again), torch.equal(ke, ke.transpose(0, 1))
+        del ke, again
+        gates.check(repeat, f"elem kernel {tag}: two launches bitwise equal")
+        if m == 4:
+            gates.check(symmetric, f"elem kernel {tag}: ke equal to its transpose")
         ms = cuda_ms(kern, reps, warmup=1)
+        device_ms = kernel_device_ms(kern, max(1, reps // 5), ELEM_KERNELS[m]["kernel"])
         plain_ms = cuda_ms(plain, max(2, reps // 5), warmup=1)
         nbytes, ops = elem_work(m, ne)
         t_bytes, t_ops = nbytes / bandwidth, ops / peaks[torch.float64]
         rec = {
             "shape": f"{et}{n}", "m": m, "elements": ne, "launches_per_level": len(xyzs),
             "strip_elements": int(xyzs[0].shape[2]), "max_abs_err": max_abs, "rel_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bitwise_repeat": repeat, "symmetric": symmetric, "ms": ms,
+            "device_ms_per_launch": device_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
             "bytes": nbytes, "ops": ops, "achieved_GBps": nbytes / ms / 1e6, **extra,
         }
-        print(f"  {tag}: level kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
+        print(f"  {tag}: level kernel_ms={ms:.4f} device_ms/launch={device_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
               f"({rec['bound_by']}) rel_err={err:.2e} ({rec['achieved_GBps']:.0f} GB/s) "
               f"{' '.join(f'{k}={v:.3e}' for k, v in extra.items())}", flush=True)
         rows.append(rec)
@@ -1174,6 +1200,16 @@ def main() -> int:
     for stem, info in built.items():
         print(f"  built {stem} in {info['seconds']:.1f} s: {' | '.join(ptxas[stem])}", flush=True)
     print(f"  build_s={build_s:.2f}", flush=True)
+    elem_ptxas = ptxas_by_kernel(built["elem_stiffness"]["log"])
+    elem_sass = sass_counts(built["elem_stiffness"]["path"])
+    for m, meta in ELEM_KERNELS.items():
+        line = " | ".join(v for k, v in elem_ptxas.items() if meta["kernel"] in k)
+        print(f"  ptxas {meta['name']}: {line}", flush=True)
+        print(f"  sass {meta['name']}: "
+              f"{[v for k, v in (elem_sass or {}).items() if meta['kernel'] in k]}", flush=True)
+        if m == 4:
+            gates.check("0 bytes spill stores, 0 bytes spill loads" in line,
+                        f"ptxas {meta['name']}: no spills")
 
     print("phase 2: kernels against their plain versions", flush=True)
     shapes = [("q", 64), ("t", 64), ("t", 1024)]
@@ -1199,8 +1235,8 @@ def main() -> int:
     runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et])
             for et in ("q", "t")]
 
-    print("phase 4: scale (1024x1024 tri)", flush=True)
-    runs.append(solve_phase(gates, "t", 1024, reps=2, golden=KIRCHHOFF, gate_rel=1e-3))
+    print("phase 4: scale (1024x1024 tri and quad)", flush=True)
+    runs += [solve_phase(gates, et, 1024, reps=2, golden=KIRCHHOFF, gate_rel=1e-3) for et in ("t", "q")]
 
     print("phase 5: scale path, class operator (1024x1024 tri, solve_df_refined)", flush=True)
     class_runs = [class_solve_phase(gates, "t", 1024)]
@@ -1282,14 +1318,15 @@ def main() -> int:
             "bound_by": at["bound_by"], "library_ms": None,
             "at": f"{at['shape']} fine level, {at['launches_per_level']} launches of "
                   f"{at['strip_elements']} elements",
-            "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
-                         for r in mine],
+            "by_shape": [{k: r[k] for k in ("shape", "ms", "device_ms_per_launch", "plain_ms", "bound_ms",
+                                            "library_ms")} for r in mine],
+            "ptxas": " | ".join(v for k, v in elem_ptxas.items() if meta["kernel"] in k),
         })
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "build_s": build_s, "ptxas": ptxas, "class_ptxas": class_ptxas,
-         "class_sass": class_sass, "longdouble_eps": float(np.finfo(np.longdouble).eps),
+         "class_sass": class_sass, "elem_ptxas": elem_ptxas, "elem_sass": elem_sass, "longdouble_eps": float(np.finfo(np.longdouble).eps),
          "kernels": kern, "class_kernels": ckern, "pair_kernels": pkern, "elem_kernels": ekern,
          "solves": runs, "class_solves": class_runs, "pair_solves": pair_runs, "grid": grids},
         indent=1))

@@ -1,6 +1,6 @@
-// Element stiffness of flat shell elements, one thread per element, in f64:
-// Tri-3 (CST membrane + Specht plate) and Quad-4 (bilinear membrane + DKQ
-// plate), each with the stabilized drilling DOF, in global axes.
+// Element stiffness of flat shell elements in f64: Tri-3 (CST membrane +
+// Specht plate) and Quad-4 (bilinear membrane + DKQ plate), each with the
+// stabilized drilling DOF, in global axes.
 //
 //   xyz [M, 3, E] f64 (node, coordinate, element), dm, dp [3, 3] f64
 //   ke  [6M, 6M, E] f64, entry (i, j) of element e at (i*6M + j)*E + e
@@ -15,25 +15,56 @@
 // the quadrature order (+,+), (+,-), (-,+), (-,-), the CST and Specht
 // sampling points). nvcc may contract products into fma here: nothing in
 // the element math is an error-free transform. No -use_fast_math: sqrt and
-// division stay IEEE.
+// division stay IEEE. No atomics: every entry is summed by one thread in a
+// fixed order, so two launches are equal bit for bit.
 //
 // Bound: bytes. A launch must read xyz and write ke, 8*(3M + 36M^2) bytes per
 // element (2664 for Tri-3, 4704 for Quad-4), against ~10-20 thousand f64
-// operations per element (chip_smoke.py elem_work counts them from this
-// code): ~4 operations per byte, under the card's f64 balance point of ~10.
+// operations per element (chip_smoke.py elem_work counts them from the
+// reference math): ~4 operations per byte, under the card's f64 balance
+// point of ~10. Both kernels are batch-last, so the 32 threads of a warp
+// store one entry (i, j) of 32 neighbouring elements in one 256-byte
+// segment, and read xyz the same way.
 //
-// Design: batch-last, so the 32 threads of a warp store one entry (i, j) of
-// 32 neighbouring elements in one 256-byte segment, and read xyz the same
-// way. Each thread keeps the membrane (2M x 2M) and plate (3M x 3M)
-// matrices, both symmetric and stored as their upper triangles, and the
-// frame R; it never holds the 6M x 6M matrix. Per node pair (i, j) it builds
-// the local 6x6 block from the membrane block, the plate block and the
-// drilling term (the largest of the five membrane/plate diagonal entries of
-// the block, over 1000), rotates it as the 3x3 blocks R^T L R of
-// blockdiag(R, R)^T L blockdiag(R, R), and stores its 36 entries. Every loop
-// is unrolled, so all indices are constants; the working set (~300 doubles
-// for Quad-4) is larger than the register file gives one thread, and ptxas
-// spills the rest to local memory (its report: chip_smoke.py phase 1).
+// Tri-3 (tri_stiffness_kernel): one thread per element. It keeps the
+// membrane (6 x 6) and plate (9 x 9) matrices, both symmetric and stored as
+// their upper triangles, and the frame R; it never holds the 18 x 18
+// matrix. Per node pair (i, j) it builds the local 6x6 block from the
+// membrane block, the plate block and the drilling term (the largest of the
+// five membrane/plate diagonal entries of the block, over 1000), rotates it
+// as the 3x3 blocks R^T L R of blockdiag(R, R)^T L blockdiag(R, R), and
+// stores its 36 entries. Every loop is unrolled, so all indices are
+// constants; ptxas spills a little of the working set (its report:
+// chip_smoke.py phase 1).
+//
+// Quad-4 (quad_stiffness_kernel): eight threads per element, so that no
+// thread holds more than one node pair's sums (one thread per element needs
+// ~300 live doubles: it ran at the 255-register cap and spilled 2.5 KB a
+// thread). A block takes 32 elements, one per lane, and 8 warps; the
+// per-element work lands in a shared table behind three barriers:
+//   1a. warp 0 builds the frames (R, local coordinates lx, ly), warp 1
+//       copies dm and dp;
+//   1b. warps 0-3 the DKQ coefficients of side w, warps 4-7 the membrane
+//       dN/dx, dN/dy and weight of Gauss point w - 4;
+//   1c. warp 4h + q the plate B columns of nodes 2h, 2h+1 at Gauss point q
+//       (and, h = 0, its weight).
+// So the frame, the side coefficients and each B column are computed once
+// per element. Phase 2: each warp owns fixed 6x6 node-pair blocks of its 32
+// elements. It sums their membrane (2x2) and plate (3x3) entries over the
+// four Gauss points in the reference's order, each term formed as add_btdb
+// forms it, then builds, rotates and stores the blocks as above:
+//   warps 0-5: the pairs (0,1) (0,2) (0,3) (1,2) (1,3) (2,3), 13 sums;
+//     block (i, j) and, from the same registers, its transpose as block
+//     (j, i) (R^T L^T R = (R^T L R)^T, the drilling term is the same): 72
+//     entries;
+//   warps 6, 7: the diagonal blocks (0,0), (1,1) and (2,2), (3,3), one after
+//     the other, 9 sums each (the upper triangles), each block's 21
+//     distinct entries stored as its 36: 72 entries.
+// So every thread stores 72 entries, and ke is exactly symmetric. The table
+// (221 rows of 32 doubles and D, 56,720 bytes) and ptxas's 128 registers
+// (kQuadMinBlocks = 2, no spills) let an SM hold 2 blocks, 16 warps; at 3
+// blocks (80 registers) ptxas spills and the kernel is slower
+// (tools/torch_elem_stiffness_variants.py measures both).
 
 #include <cuda_runtime.h>
 
@@ -292,10 +323,9 @@ __device__ __forceinline__ void tri_plate(const double (&d)[3][2], const double 
 // plate (604-688, 901-990)
 // ---------------------------------------------------------------------------
 
-// Local frame R, local in-plane node coordinates (lx, ly) and edge
-// differences ((x12, y12), (x23, y23), (x34, y34), (x41, y41)).
+// Local frame R and local in-plane node coordinates (lx, ly).
 __device__ __forceinline__ void quad_frame(const double (&x)[4][3], double (&rot)[3][3],
-                                           double (&lx)[4], double (&ly)[4], double (&d)[4][2]) {
+                                           double (&lx)[4], double (&ly)[4]) {
   double ex[3], vr[3], ez[3], ey[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -325,119 +355,59 @@ __device__ __forceinline__ void quad_frame(const double (&x)[4][3], double (&rot
     lx[i] = dot3(ex, x[i]);
     ly[i] = dot3(ey, x[i]);
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    d[k][0] = lx[k] - lx[(k + 1) % 4];
-    d[k][1] = ly[k] - ly[(k + 1) % 4];
-  }
 }
 
-__device__ __forceinline__ void quad_membrane(const double (&lx)[4], const double (&ly)[4],
-                                              const double (&dm)[9], const double t, Sym<8>& km) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const double r = quad_qp_r(q);
-    const double s = quad_qp_s(q);
-    // bilinear shape-function derivatives in (r, s); fem-shell.cpp:494-502
-    const double dhdr[4] = {-0.25 * (1 - s), 0.25 * (1 - s), 0.25 * (1 + s), -0.25 * (1 + s)};
-    const double dhds[4] = {-0.25 * (1 - r), -0.25 * (1 + r), 0.25 * (1 + r), 0.25 * (1 - r)};
-    double j00 = 0.0, j01 = 0.0, j10 = 0.0, j11 = 0.0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      j00 += lx[i] * dhdr[i];
-      j01 += ly[i] * dhdr[i];
-      j10 += lx[i] * dhds[i];
-      j11 += ly[i] * dhds[i];
-    }
-    const double det = j00 * j11 - j01 * j10;
-    const double q00 = j11 / det, q01 = -j01 / det;
-    const double q12 = -j10 / det, q13 = j00 / det;
-    double b[3][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      b[0][2 * i] = q00 * dhdr[i] + q01 * dhds[i];
-      b[0][2 * i + 1] = 0.0;
-      b[1][2 * i] = 0.0;
-      b[1][2 * i + 1] = q12 * dhdr[i] + q13 * dhds[i];
-      b[2][2 * i] = q12 * dhdr[i] + q13 * dhds[i];
-      b[2][2 * i + 1] = q00 * dhdr[i] + q01 * dhds[i];
-    }
-    add_btdb<8>(km, b, dm, det * t);
-  }
+// Derivatives N_xi, N_eta of the 8-node serendipity shape functions at
+// (xi, eta), corners then mid-side nodes 5-8; fem-shell.cpp:901-990.
+__device__ __forceinline__ void dkq_shape_derivatives(const double xi, const double eta,
+                                                      double (&n_xi)[8], double (&n_eta)[8]) {
+  n_xi[0] = 0.25 * (2 * xi + eta) * (1 - eta);
+  n_xi[1] = 0.25 * (2 * xi - eta) * (1 - eta);
+  n_xi[2] = 0.25 * (2 * xi + eta) * (1 + eta);
+  n_xi[3] = 0.25 * (2 * xi - eta) * (1 + eta);
+  n_xi[4] = -xi * (1 - eta);
+  n_xi[5] = 0.5 * (1 - eta * eta);
+  n_xi[6] = -xi * (1 + eta);
+  n_xi[7] = -0.5 * (1 - eta * eta);
+  n_eta[0] = 0.25 * (2 * eta + xi) * (1 - xi);
+  n_eta[1] = 0.25 * (2 * eta - xi) * (1 + xi);
+  n_eta[2] = 0.25 * (2 * eta + xi) * (1 + xi);
+  n_eta[3] = 0.25 * (2 * eta - xi) * (1 - xi);
+  n_eta[4] = -0.5 * (1 - xi * xi);
+  n_eta[5] = -eta * (1 + xi);
+  n_eta[6] = 0.5 * (1 - xi * xi);
+  n_eta[7] = -eta * (1 - xi);
 }
 
-// Hx and Hy of one derivative direction (n = N_xi or N_eta); h[5][4] holds
-// the coefficients a, b, c, d, e of sides 5-8 (Batoz numbering).
-__device__ __forceinline__ void h_vectors(const double (&h)[5][4], const double (&n)[8],
-                                          double (&hx)[12], double (&hy)[12]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = 4 + i;            // mid-side node on side i
-    const int p = 4 + (i + 3) % 4;  // the preceding mid-side node
-    const int im = i, ip = (i + 3) % 4;
-    hx[3 * i] = 1.5 * (h[0][im] * n[m] - h[0][ip] * n[p]);
-    hx[3 * i + 1] = h[1][im] * n[m] + h[1][ip] * n[p];
-    hx[3 * i + 2] = n[i] - h[2][im] * n[m] - h[2][ip] * n[p];
-    hy[3 * i] = 1.5 * (h[3][im] * n[m] - h[3][ip] * n[p]);
-    hy[3 * i + 1] = -n[i] + h[4][im] * n[m] + h[4][ip] * n[p];
-    hy[3 * i + 2] = -(h[1][im] * n[m] + h[1][ip] * n[p]);
-  }
+// The three entries of Hx and of Hy of corner node i for one derivative
+// direction (n = N_xi or N_eta).
+__device__ __forceinline__ void h_node(const double (&h)[5][4], const double (&n)[8], const int i,
+                                       double (&hx)[3], double (&hy)[3]) {
+  const int m = 4 + i;            // mid-side node on side i
+  const int p = 4 + (i + 3) % 4;  // the preceding mid-side node
+  const int im = i, ip = (i + 3) % 4;
+  hx[0] = 1.5 * (h[0][im] * n[m] - h[0][ip] * n[p]);
+  hx[1] = h[1][im] * n[m] + h[1][ip] * n[p];
+  hx[2] = n[i] - h[2][im] * n[m] - h[2][ip] * n[p];
+  hy[0] = 1.5 * (h[3][im] * n[m] - h[3][ip] * n[p]);
+  hy[1] = -n[i] + h[4][im] * n[m] + h[4][ip] * n[p];
+  hy[2] = -(h[1][im] * n[m] + h[1][ip] * n[p]);
 }
 
-// DKQ strain matrix at (xi, eta); fem-shell.cpp:901-990.
-__device__ __forceinline__ void eval_b_quad(const double (&h)[5][4], const double xi,
-                                            const double eta, const double (&jinv)[2][2],
-                                            double (&b)[3][12]) {
-  const double n_xi[8] = {
-      0.25 * (2 * xi + eta) * (1 - eta), 0.25 * (2 * xi - eta) * (1 - eta),
-      0.25 * (2 * xi + eta) * (1 + eta), 0.25 * (2 * xi - eta) * (1 + eta),
-      -xi * (1 - eta),                   0.5 * (1 - eta * eta),
-      -xi * (1 + eta),                   -0.5 * (1 - eta * eta),
-  };
-  const double n_eta[8] = {
-      0.25 * (2 * eta + xi) * (1 - xi), 0.25 * (2 * eta - xi) * (1 + xi),
-      0.25 * (2 * eta + xi) * (1 + xi), 0.25 * (2 * eta - xi) * (1 - xi),
-      -0.5 * (1 - xi * xi),             -eta * (1 + xi),
-      0.5 * (1 - xi * xi),              -eta * (1 - xi),
-  };
-  double hx_xi[12], hy_xi[12], hx_eta[12], hy_eta[12];
-  h_vectors(h, n_xi, hx_xi, hy_xi);
-  h_vectors(h, n_eta, hx_eta, hy_eta);
+// Columns 3i..3i+2 of the DKQ strain matrix B (b[row][k] = B[row][3i+k]);
+// fem-shell.cpp:901-990.
+__device__ __forceinline__ void dkq_b_node(const double (&h)[5][4], const double (&n_xi)[8],
+                                           const double (&n_eta)[8], const double (&jinv)[2][2],
+                                           const int i, double (&b)[3][3]) {
+  double hx_xi[3], hy_xi[3], hx_eta[3], hy_eta[3];
+  h_node(h, n_xi, i, hx_xi, hy_xi);
+  h_node(h, n_eta, i, hx_eta, hy_eta);
 #pragma unroll
-  for (int c = 0; c < 12; ++c) {
-    b[0][c] = jinv[0][0] * hx_xi[c] + jinv[0][1] * hx_eta[c];
-    b[1][c] = jinv[1][0] * hy_xi[c] + jinv[1][1] * hy_eta[c];
-    b[2][c] = jinv[0][0] * hy_xi[c] + jinv[0][1] * hy_eta[c] + jinv[1][0] * hx_xi[c] +
-              jinv[1][1] * hx_eta[c];
-  }
-}
-
-__device__ __forceinline__ void quad_plate(const double (&d)[4][2], const double (&dp)[9],
-                                           Sym<12>& kp) {
-  double h[5][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const double dx = d[k][0], dy = d[k][1];
-    const double ss = dx * dx + dy * dy;  // squared side length
-    h[0][k] = -dx / ss;
-    h[1][k] = 0.75 * dx * dy / ss;
-    h[2][k] = (0.25 * (dx * dx) - 0.5 * (dy * dy)) / ss;
-    h[3][k] = -dy / ss;
-    h[4][k] = (0.25 * (dy * dy) - 0.5 * (dx * dx)) / ss;
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const double r = quad_qp_r(q);
-    const double s = quad_qp_s(q);
-    const double j00 = 0.25 * ((d[0][0] + d[2][0]) * s - d[0][0] + d[2][0]);
-    const double j01 = 0.25 * ((d[0][1] + d[2][1]) * s - d[0][1] + d[2][1]);
-    const double j10 = 0.25 * ((d[0][0] + d[2][0]) * r - d[1][0] + d[3][0]);
-    const double j11 = 0.25 * ((d[0][1] + d[2][1]) * r - d[1][1] + d[3][1]);
-    const double det = j00 * j11 - j01 * j10;
-    const double jinv[2][2] = {{j11 / det, -j01 / det}, {-j10 / det, j00 / det}};
-    double b[3][12];
-    eval_b_quad(h, r, s, jinv, b);
-    add_btdb<12>(kp, b, dp, det);
+  for (int k = 0; k < 3; ++k) {
+    b[0][k] = jinv[0][0] * hx_xi[k] + jinv[0][1] * hx_eta[k];
+    b[1][k] = jinv[1][0] * hy_xi[k] + jinv[1][1] * hy_eta[k];
+    b[2][k] = jinv[0][0] * hy_xi[k] + jinv[0][1] * hy_eta[k] + jinv[1][0] * hx_xi[k] +
+              jinv[1][1] * hx_eta[k];
   }
 }
 
@@ -510,15 +480,15 @@ __device__ __forceinline__ void store_blocks(const Sym<2 * M>& km, const Sym<3 *
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(128) elem_stiffness_kernel(
+
+__global__ void __launch_bounds__(128) tri_stiffness_kernel(
     const double* __restrict__ xyz, const double* __restrict__ dmat,
     const double* __restrict__ dpmat, const double t, const int64_t ne, double* __restrict__ ke) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= ne) return;
-  double x[M][3], dm[9], dp[9];
+  double x[3][3], dm[9], dp[9];
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
+  for (int i = 0; i < 3; ++i) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) x[i][c] = __ldg(xyz + (i * 3 + c) * ne + e);
   }
@@ -528,30 +498,362 @@ __global__ void __launch_bounds__(128) elem_stiffness_kernel(
     dp[k] = __ldg(dpmat + k);
   }
   double rot[3][3];
-  Sym<2 * M> km;
-  Sym<3 * M> kp;
-  if constexpr (M == 3) {
-    double d[3][2], area;
-    tri_frame(x, rot, d, area);
-    tri_membrane(d, area, dm, t, km);
-    tri_plate(d, area, dp, kp);
-  } else {
-    double lx[4], ly[4], d[4][2];
-    quad_frame(x, rot, lx, ly, d);
-    quad_membrane(lx, ly, dm, t, km);
-    quad_plate(d, dp, kp);
-  }
-  store_blocks<M>(km, kp, rot, ke, e, ne);
+  Sym<6> km;
+  Sym<9> kp;
+  double d[3][2], area;
+  tri_frame(x, rot, d, area);
+  tri_membrane(d, area, dm, t, km);
+  tri_plate(d, area, dp, kp);
+  store_blocks<3>(km, kp, rot, ke, e, ne);
 }
 
-template <int M>
-int launch(const double* xyz, const double* dm, const double* dp, double t, int64_t ne, double* ke,
-           void* stream) {
-  if (ne < 1) return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// Quad-4, eight threads per element
+// ---------------------------------------------------------------------------
+
+constexpr int kQuadLanes = 32;     // elements per block, one per lane
+constexpr int kQuadWarps = 8;      // threads per element
+constexpr int kQuadMinBlocks = 2;  // resident blocks per SM: the register cap
+// Shared table, one row of kQuadLanes doubles (one per lane) per entry: R
+// (9 rows), the local coordinates lx, ly (4 + 4), the DKQ coefficients
+// h[c][side] (20), then per Gauss point q at row kRowGauss + q *
+// kRowsPerGauss: the plate B [3][12] row-major, the plate weight det, dN/dx
+// and dN/dy of nodes 0-3, and the membrane weight det * t. After the table,
+// dm and dp (18 doubles, one copy for the block).
+constexpr int kRowLx = 9, kRowLy = 13, kRowH = 17;
+constexpr int kRowGauss = 37;
+constexpr int kRowsPerGauss = 46;
+constexpr int kOffPlateW = 36, kOffDx = 37, kOffDy = 41, kOffMembraneW = 45;
+constexpr int kQuadTable = (kRowGauss + 4 * kRowsPerGauss) * kQuadLanes;
+constexpr int kQuadSmemBytes = (kQuadTable + 18) * 8;
+
+__device__ __forceinline__ double& row(double* table, const int k) { return table[k * kQuadLanes]; }
+__device__ __forceinline__ double row(const double* table, const int k) { return table[k * kQuadLanes]; }
+
+// Edge differences ((x12, y12), (x23, y23), (x34, y34), (x41, y41)) from the
+// table's local coordinates.
+__device__ __forceinline__ void table_edges(const double* table, double (&d)[4][2]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    d[k][0] = row(table, kRowLx + k) - row(table, kRowLx + (k + 1) % 4);
+    d[k][1] = row(table, kRowLy + k) - row(table, kRowLy + (k + 1) % 4);
+  }
+}
+
+// Phase 1b, warps 0-3: the DKQ coefficients a, b, c, d, e of side k (sides
+// 5-8 in Batoz numbering), h[c][k]; fem-shell.cpp:604-688.
+__device__ __forceinline__ void quad_side_table(double* table, const int k) {
+  const int k1 = (k + 1) % 4;
+  const double dx = row(table, kRowLx + k) - row(table, kRowLx + k1);
+  const double dy = row(table, kRowLy + k) - row(table, kRowLy + k1);
+  const double ss = dx * dx + dy * dy;  // squared side length
+  row(table, kRowH + k) = -dx / ss;
+  row(table, kRowH + 4 + k) = 0.75 * dx * dy / ss;
+  row(table, kRowH + 8 + k) = (0.25 * (dx * dx) - 0.5 * (dy * dy)) / ss;
+  row(table, kRowH + 12 + k) = -dy / ss;
+  row(table, kRowH + 16 + k) = (0.25 * (dy * dy) - 0.5 * (dx * dx)) / ss;
+}
+
+// Phase 1b, warps 4-7: dN/dx, dN/dy of the four nodes and the weight det *
+// t of Gauss point q; the Jacobian from the local coordinates,
+// fem-shell.cpp:469-541.
+__device__ __forceinline__ void quad_membrane_table(double* table, const int q, const double t) {
+  const double r = quad_qp_r(q);
+  const double s = quad_qp_s(q);
+  double* const g = table + (kRowGauss + q * kRowsPerGauss) * kQuadLanes;
+  // bilinear shape-function derivatives in (r, s); fem-shell.cpp:494-502
+  const double dhdr[4] = {-0.25 * (1 - s), 0.25 * (1 - s), 0.25 * (1 + s), -0.25 * (1 + s)};
+  const double dhds[4] = {-0.25 * (1 - r), -0.25 * (1 + r), 0.25 * (1 + r), 0.25 * (1 - r)};
+  double j00 = 0.0, j01 = 0.0, j10 = 0.0, j11 = 0.0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double lx = row(table, kRowLx + i), ly = row(table, kRowLy + i);
+    j00 += lx * dhdr[i];
+    j01 += ly * dhdr[i];
+    j10 += lx * dhds[i];
+    j11 += ly * dhds[i];
+  }
+  const double det = j00 * j11 - j01 * j10;
+  const double q00 = j11 / det, q01 = -j01 / det;
+  const double q12 = -j10 / det, q13 = j00 / det;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row(g, kOffDx + i) = q00 * dhdr[i] + q01 * dhds[i];
+    row(g, kOffDy + i) = q12 * dhdr[i] + q13 * dhds[i];
+  }
+  row(g, kOffMembraneW) = det * t;
+}
+
+// Phase 1c, warp 4H + q: plate B columns 6H..6H+5 (nodes 2H, 2H+1) of Gauss
+// point q and, for H = 0, its weight det; the Jacobian from the edge
+// differences, fem-shell.cpp:604-688.
+template <int H>
+__device__ __forceinline__ void quad_plate_table(double* table, const int q) {
+  const double r = quad_qp_r(q);
+  const double s = quad_qp_s(q);
+  double* const g = table + (kRowGauss + q * kRowsPerGauss) * kQuadLanes;
+  double d[4][2], h[5][4];
+  table_edges(table, d);
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[c][k] = row(table, kRowH + 4 * c + k);  // the unused side is dropped
+  }
+  const double j00 = 0.25 * ((d[0][0] + d[2][0]) * s - d[0][0] + d[2][0]);
+  const double j01 = 0.25 * ((d[0][1] + d[2][1]) * s - d[0][1] + d[2][1]);
+  const double j10 = 0.25 * ((d[0][0] + d[2][0]) * r - d[1][0] + d[3][0]);
+  const double j11 = 0.25 * ((d[0][1] + d[2][1]) * r - d[1][1] + d[3][1]);
+  const double det = j00 * j11 - j01 * j10;
+  const double jinv[2][2] = {{j11 / det, -j01 / det}, {-j10 / det, j00 / det}};
+  double n_xi[8], n_eta[8];
+  dkq_shape_derivatives(r, s, n_xi, n_eta);
+#pragma unroll
+  for (int i = 2 * H; i < 2 * H + 2; ++i) {
+    double b[3][3];
+    dkq_b_node(h, n_xi, n_eta, jinv, i, b);
+#pragma unroll
+    for (int rr = 0; rr < 3; ++rr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) row(g, rr * 12 + 3 * i + k) = b[rr][k];
+    }
+  }
+  if (H == 0) row(g, kOffPlateW) = det;
+}
+
+// Plate column c of B at a Gauss point (row 0 at g).
+__device__ __forceinline__ void plate_column(const double* __restrict__ g, const int c, double (&b)[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) b[r] = row(g, r * 12 + c);
+}
+
+// Membrane columns 2i and 2i+1 of B at a Gauss point: (dN/dx, 0, dN/dy)
+// and (0, dN/dy, dN/dx) of node i.
+__device__ __forceinline__ void membrane_columns(const double* __restrict__ g, const int i,
+                                                 double (&b)[2][3]) {
+  const double dx = row(g, kOffDx + i), dy = row(g, kOffDy + i);
+  b[0][0] = dx;
+  b[0][1] = 0.0;
+  b[0][2] = dy;
+  b[1][0] = 0.0;
+  b[1][1] = dy;
+  b[1][2] = dx;
+}
+
+// D b for N columns b of B, D [3, 3] row-major in shared memory. The reads
+// are volatile, so D is read where it is used and never held in registers
+// across the Gauss points (it would take 36 of them).
+template <int N>
+__device__ __forceinline__ void d_times(const volatile double* dsh, const double (&b)[N][3],
+                                        double (&db)[N][3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const double d0 = dsh[r * 3], d1 = dsh[r * 3 + 1], d2 = dsh[r * 3 + 2];
+#pragma unroll
+    for (int c = 0; c < N; ++c) db[c][r] = d0 * b[c][0] + d1 * b[c][1] + d2 * b[c][2];
+  }
+}
+
+// Sums of node pair (i, j) over the Gauss points in the reference's order,
+// each term w * b_p . (D b_q) as add_btdb forms it: membrane mm[a][b] =
+// K(2i+a, 2j+b), plate pp[a][b] = K(3i+a, 3j+b). For i = j only the upper
+// triangles (a <= b) are summed. dsh holds dm, then dp.
+template <bool kDiagonal>
+__device__ __forceinline__ void quad_pair_sums(const double* __restrict__ table, const int i,
+                                               const int j, const volatile double* dsh,
+                                               double (&mm)[2][2], double (&pp)[3][3]) {
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    const double* g = table + (kRowGauss + q * kRowsPerGauss) * kQuadLanes;
+    double bi[3][3], bj[3][3], dbj[3][3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      plate_column(g, 3 * j + c, bj[c]);
+      plate_column(g, 3 * i + c, bi[c]);
+    }
+    d_times<3>(dsh + 9, bj, dbj);
+    const double wp = row(g, kOffPlateW);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = kDiagonal ? a : 0; b < 3; ++b) pp[a][b] += wp * dot3(bi[a], dbj[b]);
+    }
+    double mi[2][3], mj[2][3], dmj[2][3];
+    membrane_columns(g, i, mi);
+    membrane_columns(g, j, mj);
+    d_times<2>(dsh, mj, dmj);
+    const double wm = row(g, kOffMembraneW);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = kDiagonal ? a : 0; b < 2; ++b) mm[a][b] += wm * dot3(mi[a], dmj[b]);
+    }
+  }
+}
+
+// The local 6x6 block L of a node pair over (u, v, w | tx, ty, tz), as
+// store_blocks builds it, from its membrane and plate entries and the
+// drilling term.
+__device__ __forceinline__ void local_block(const double (&mm)[2][2], const double (&p)[3][3],
+                                            double (&l11)[3][3], double (&l12)[3][3],
+                                            double (&l21)[3][3], double (&l22)[3][3]) {
+  const double drill = max2(max2(max2(max2(mm[0][0], mm[1][1]), p[0][0]), p[1][1]), p[2][2]) / 1000.0;
+  const double a11[3][3] = {{mm[0][0], mm[0][1], 0.0}, {mm[1][0], mm[1][1], 0.0}, {0.0, 0.0, p[0][0]}};
+  const double a12[3][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}, {p[0][1], p[0][2], 0.0}};
+  const double a21[3][3] = {{0.0, 0.0, p[1][0]}, {0.0, 0.0, p[2][0]}, {0.0, 0.0, 0.0}};
+  const double a22[3][3] = {{p[1][1], p[1][2], 0.0}, {p[2][1], p[2][2], 0.0}, {0.0, 0.0, drill}};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      l11[r][c] = a11[r][c];
+      l12[r][c] = a12[r][c];
+      l21[r][c] = a21[r][c];
+      l22[r][c] = a22[r][c];
+    }
+  }
+}
+
+__device__ __forceinline__ int64_t quad_index(const int row, const int col, const int64_t e,
+                                              const int64_t ne) {
+  return (static_cast<int64_t>(row) * 24 + col) * ne + e;
+}
+
+// Store G = R^T A R at rows row0.., columns col0.. of element e's matrix
+// and G^T at rows col0.., columns row0...
+__device__ __forceinline__ void store_rotated_and_transpose(const double (&a)[3][3],
+                                                            const double (&rot)[3][3],
+                                                            double* __restrict__ ke, const int row0,
+                                                            const int col0, const int64_t e,
+                                                            const int64_t ne) {
+  double g[3][3];
+  rotate3(a, rot, g);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ke[quad_index(row0 + r, col0 + c, e, ne)] = g[r][c];
+      ke[quad_index(col0 + c, row0 + r, e, ne)] = g[r][c];
+    }
+  }
+}
+
+// Store R^T A R of a symmetric A at rows and columns row0.. from its upper
+// triangle, so that the stored block is exactly symmetric.
+__device__ __forceinline__ void store_rotated_symmetric(const double (&a)[3][3],
+                                                        const double (&rot)[3][3],
+                                                        double* __restrict__ ke, const int row0,
+                                                        const int64_t e, const int64_t ne) {
+  double g[3][3];
+  rotate3(a, rot, g);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ke[quad_index(row0 + r, row0 + c, e, ne)] = r <= c ? g[r][c] : g[c][r];
+  }
+}
+
+__global__ void __launch_bounds__(kQuadLanes * kQuadWarps, kQuadMinBlocks) quad_stiffness_kernel(
+    const double* __restrict__ xyz, const double* __restrict__ dmat,
+    const double* __restrict__ dpmat, const double t, const int64_t ne, double* __restrict__ ke) {
+  extern __shared__ double smem[];
+  const int lane = threadIdx.x % kQuadLanes;
+  const int warp = threadIdx.x / kQuadLanes;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kQuadLanes + lane;
+  double* const table = smem + lane;  // row k of this lane's element at table[k * kQuadLanes]
+  double* const dsh = smem + kQuadTable;
+  // phase 1a: warp 0 builds the frames, warp 1 copies D
+  if (warp == 0) {
+    const int64_t el = e < ne ? e : ne - 1;  // the ragged tail builds a copy of the last element
+    double x[4][3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) x[i][c] = __ldg(xyz + (i * 3 + c) * ne + el);
+    }
+    double rot[3][3], lx[4], ly[4];
+    quad_frame(x, rot, lx, ly);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) row(table, k) = rot[k / 3][k % 3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      row(table, kRowLx + i) = lx[i];
+      row(table, kRowLy + i) = ly[i];
+    }
+  } else if (warp == 1 && lane < 18) {
+    dsh[lane] = lane < 9 ? __ldg(dmat + lane) : __ldg(dpmat + lane - 9);
+  }
+  __syncthreads();
+  // phase 1b: warps 0-3 the DKQ coefficients of side w, warps 4-7 the
+  // membrane of Gauss point w - 4
+  if (warp < 4) {
+    quad_side_table(table, warp);
+  } else {
+    quad_membrane_table(table, warp - 4, t);
+  }
+  __syncthreads();
+  // phase 1c: warp 4h + q the plate B columns of nodes 2h, 2h+1 at Gauss point q
+  if (warp < 4) {
+    quad_plate_table<0>(table, warp);
+  } else {
+    quad_plate_table<1>(table, warp - 4);
+  }
+  __syncthreads();
+  if (e >= ne) return;
+  double rot[3][3];
+  if (warp < 6) {
+    // (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
+    const int i = warp < 3 ? 0 : (warp < 5 ? 1 : 2);
+    const int j = warp < 3 ? warp + 1 : (warp < 5 ? warp - 1 : 3);
+    double mm[2][2] = {}, pp[3][3] = {};
+    quad_pair_sums<false>(table, i, j, dsh, mm, pp);
+    double l11[3][3], l12[3][3], l21[3][3], l22[3][3];
+    local_block(mm, pp, l11, l12, l21, l22);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) rot[k / 3][k % 3] = row(table, k);
+    store_rotated_and_transpose(l11, rot, ke, 6 * i, 6 * j, e, ne);
+    store_rotated_and_transpose(l12, rot, ke, 6 * i, 6 * j + 3, e, ne);
+    store_rotated_and_transpose(l21, rot, ke, 6 * i + 3, 6 * j, e, ne);
+    store_rotated_and_transpose(l22, rot, ke, 6 * i + 3, 6 * j + 3, e, ne);
+  } else {
+#pragma unroll 1
+    for (int i = 2 * (warp - 6); i < 2 * (warp - 6) + 2; ++i) {
+      double mm[2][2] = {}, pp[3][3] = {};
+      quad_pair_sums<true>(table, i, i, dsh, mm, pp);
+      mm[1][0] = mm[0][1];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < a; ++b) pp[a][b] = pp[b][a];
+      }
+      double l11[3][3], l12[3][3], l21[3][3], l22[3][3];
+      local_block(mm, pp, l11, l12, l21, l22);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) rot[k / 3][k % 3] = row(table, k);
+      // L21 = L12^T: its rotation is stored as the transpose of L12's
+      store_rotated_symmetric(l11, rot, ke, 6 * i, e, ne);
+      store_rotated_and_transpose(l12, rot, ke, 6 * i, 6 * i + 3, e, ne);
+      store_rotated_symmetric(l22, rot, ke, 6 * i + 3, e, ne);
+    }
+  }
+}
+
+int launch_tri(const double* xyz, const double* dm, const double* dp, double t, int64_t ne,
+               double* ke, cudaStream_t stream) {
   constexpr int kThreads = 128;
   const int64_t blocks = (ne + kThreads - 1) / kThreads;
-  elem_stiffness_kernel<M><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(xyz, dm, dp, t, ne, ke);
+  tri_stiffness_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(xyz, dm, dp, t, ne, ke);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_quad(const double* xyz, const double* dm, const double* dp, double t, int64_t ne,
+                double* ke, cudaStream_t stream) {
+  // the table is above the 48 KB a block gets without asking
+  const cudaError_t err = cudaFuncSetAttribute(
+      quad_stiffness_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kQuadSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (ne + kQuadLanes - 1) / kQuadLanes;
+  quad_stiffness_kernel<<<static_cast<unsigned>(blocks), kQuadLanes * kQuadWarps, kQuadSmemBytes,
+                          stream>>>(xyz, dm, dp, t, ne, ke);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,7 +864,9 @@ int launch(const double* xyz, const double* dm, const double* dp, double t, int6
 // is cudaGetLastError() after the launch (0 = launched).
 extern "C" int elem_stiffness_f64(const double* xyz, const double* dm, const double* dp,
                                   double thickness, int m, int64_t ne, double* ke, void* stream) {
-  if (m == 3) return launch<3>(xyz, dm, dp, thickness, ne, ke, stream);
-  if (m == 4) return launch<4>(xyz, dm, dp, thickness, ne, ke, stream);
+  if (ne < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (m == 3) return launch_tri(xyz, dm, dp, thickness, ne, ke, s);
+  if (m == 4) return launch_quad(xyz, dm, dp, thickness, ne, ke, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -51,7 +51,8 @@ def _target(src: Path) -> Path:
 def build_all() -> Dict[str, dict]:
     """Compile every csrc/*.cu that has no current build, one nvcc process
     per source, all started together. Returns {stem: {"path", "seconds",
-    "log"}}; "seconds" is 0.0 and "log" empty for a build that was current.
+    "log"}}; for a build that was current "seconds" is 0.0 and "log" the
+    one kept beside it.
     Raises RuntimeError with nvcc's output if any source fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, dict] = {}
@@ -59,7 +60,9 @@ def build_all() -> Dict[str, dict]:
     for src in sorted(SRC_DIR.glob("*.cu")):
         so = _target(src)
         if so.exists():
-            out[src.stem] = {"path": str(so), "seconds": 0.0, "log": ""}
+            log = so.with_suffix(".log")
+            out[src.stem] = {"path": str(so), "seconds": 0.0,
+                             "log": log.read_text() if log.exists() else ""}
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]

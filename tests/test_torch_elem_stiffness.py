@@ -11,10 +11,16 @@ against ``df_function_bl(kernel_fn)`` (hi + lo) and against the vmapped
 f64 ``tri_shell_stiffness`` / ``quad_shell_stiffness``, on 8 elements per
 family: 4 flat in the xy-plane and 4 tilted in 3-D (the quads also
 warped out of their plane), with input coordinates that are exact
-two-float32 pairs. Tolerance: 1e-12 of each element's max|ke| (f64 in
-another order of operations, and the df pair's ~2^-48 arithmetic). Each
-JAX call runs once, in a module fixture (8.7-10.1 s eagerly).
+two-float32 pairs. The f64 comparison also takes four harder Quad-4
+shapes (a 1:20 rectangle, a trapezoid, a quad turned into 3-D, a warped
+quad far from the origin), four elements each: the card's gates hold the
+kernel against this plain version. Tolerance: 1e-12 of each element's
+max|ke| (f64 in another order of operations, and the df pair's ~2^-48
+arithmetic). Each JAX call runs once, in a module fixture (8.7-10.1 s
+eagerly).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +31,7 @@ from fem_shell_tpu.materials import Material as JMaterial
 from fem_shell_tpu.ops import elements as jel
 from fem_shell_tpu.ops.df import DF
 from fem_shell_tpu.ops.dfk import df_function_bl
+from fem_shell_tpu_torch.ops import _build
 from fem_shell_tpu_torch.ops import elem_stiffness as tes
 
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
@@ -71,6 +78,40 @@ def _kernel_fn(m):
     return lambda p: base(p, dm, dp, JMAT.thickness)
 
 
+def _hard_quads(seed: int = 57):
+    """{shape: [4, 3, 4] batch-last coordinates}: four elements each of
+    Quad-4 shapes where index or frame work goes wrong first: a 1:20
+    rectangle, a trapezoid, a flat quad turned into 3-D, and a warped quad
+    ~150 from the origin (50-500 element sizes)."""
+    rng = np.random.default_rng(seed)
+    base = {
+        "rect-1:20": np.array([[0.0, 0.0], [20.0, 0.0], [20.0, 1.0], [0.0, 1.0]]),
+        "trapezoid": np.array([[0.0, 0.0], [2.0, 0.0], [1.5, 1.0], [0.5, 1.0]]),
+        "rotated-3d": np.array([[0.0, 0.0], [1.0, 0.0], [1.1, 0.9], [-0.1, 1.0]]),
+        "warped-far": np.array([[0.0, 0.0], [1.0, 0.0], [1.1, 0.9], [-0.1, 1.0]]),
+    }
+    out = {}
+    for name, xy in base.items():
+        els = np.empty((4, 4, 3))
+        for e in range(4):
+            a = rng.uniform(0, 2 * np.pi)
+            rot2 = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+            pts = np.hstack([(xy @ rot2.T) * rng.uniform(0.3, 3.0), np.zeros((4, 1))])
+            if name in ("rotated-3d", "warped-far"):
+                if name == "warped-far":
+                    pts[:, 2] = 0.05 * np.array([1.0, -1.0, 1.0, -1.0]) * rng.uniform(0.5, 1.5)
+                q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+                pts = pts @ q.T
+            if name == "warped-far":
+                pts = pts + np.array([120.0, -80.0, 50.0])
+            els[e] = pts
+        out[name] = np.ascontiguousarray(els.transpose(1, 2, 0))
+    return out
+
+
+HARD_QUADS = ("rect-1:20", "trapezoid", "rotated-3d", "warped-far")
+
+
 @pytest.fixture(scope="module")
 def cases():
     """Per family: coordinates, the JAX df-interpreted stiffness (hi + lo),
@@ -87,6 +128,14 @@ def cases():
         f64 = np.moveaxis(np.asarray(jax.jit(jax.vmap(kfn))(jnp.asarray(np.moveaxis(xyz, 2, 0)))), 0, 2)
         port = tes.elem_stiffness(torch.from_numpy(xyz), dm, dp, JMAT.thickness).numpy()
         out[m] = {"xyz": xyz, "df": df, "f64": f64, "port": port, "dm": dm, "dp": dp}
+    # the harder Quad-4 shapes, one vmapped f64 call for all of them
+    hard = _hard_quads()
+    xyz = np.concatenate([hard[k] for k in HARD_QUADS], axis=2)
+    f64 = np.moveaxis(np.asarray(jax.jit(jax.vmap(_kernel_fn(4)))(jnp.asarray(np.moveaxis(xyz, 2, 0)))), 0, 2)
+    port = tes.elem_stiffness(torch.from_numpy(xyz), dm, dp, JMAT.thickness).numpy()
+    for i, k in enumerate(HARD_QUADS):
+        sl = slice(4 * i, 4 * i + 4)
+        out[k] = {"xyz": hard[k], "f64": f64[:, :, sl], "port": port[:, :, sl]}
     return out
 
 
@@ -104,10 +153,21 @@ def test_plain_matches_jax_df_interpretation(cases, m):
     assert _per_element_err(c["port"], c["df"]) <= GATE
 
 
-@pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
+@pytest.mark.parametrize("m", [3, 4, *HARD_QUADS], ids=["tri", "quad", *(f"quad-{k}" for k in HARD_QUADS)])
 def test_plain_matches_jax_f64_elements(cases, m):
     c = cases[m]
+    assert c["port"].shape == c["f64"].shape
     assert _per_element_err(c["port"], c["f64"]) <= GATE
+
+
+def test_kernel_source_keeps_launches_repeatable():
+    """Two launches of the element kernel give the same bits: no atomic
+    update in csrc/elem_stiffness.cu (each entry is summed by one thread in
+    a fixed order), and no -use_fast_math among the build flags (sqrt and
+    division stay IEEE)."""
+    src = (_build.SRC_DIR / "elem_stiffness.cu").read_text()
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+    assert not any("fast_math" in f or "fast-math" in f for f in _build.NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
