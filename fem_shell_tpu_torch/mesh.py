@@ -20,14 +20,16 @@ Boundary-condition semantics (fem-shell.cpp:87-120):
 - bc ids {0, 20}: "simply supported" -> constrain u, v, w
 - bc ids {1, 21}: "clamped"          -> constrain u, v, w, tx, ty, tz
 
-RCM reordering, uniform refinement, XDR and Gmsh input are not ported yet
+Output: ``write_xda`` and ``write_forces`` write the dialect meshGen
+writes, byte for byte as the JAX package's writers do. RCM reordering,
+uniform refinement, XDR and Gmsh input and output are not ported yet
 (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -81,6 +83,10 @@ class ShellMesh:
     def n_elems(self) -> int:
         return int(self.elem_types.shape[0])
 
+    @property
+    def n_dofs(self) -> int:
+        return 6 * self.n_nodes
+
     def side_nodes(self, elem: int, side: int) -> Tuple[int, int]:
         """Global node ids of an element edge (libMesh side convention)."""
         if self.elem_types[elem] == XDA_TRI3:
@@ -117,6 +123,35 @@ class ShellMesh:
         if self.node_dirichlet_mask is not None:
             mask |= np.asarray(self.node_dirichlet_mask, bool)
         return mask
+
+
+    def adjacency_coo(self) -> Tuple[np.ndarray, np.ndarray]:
+        """All (row, col) node-coupling pairs from the connectivity
+        (duplicates included): the sparsity graph. Without elements, the
+        diagonal."""
+        rows, cols = [], []
+        for conn in (self.tri, self.quad):
+            if len(conn) == 0:
+                continue
+            m = conn.shape[1]
+            for a in range(m):
+                for b in range(m):
+                    rows.append(conn[:, a])
+                    cols.append(conn[:, b])
+        if not rows:
+            n = np.arange(self.n_nodes, dtype=np.int32)
+            return n, n
+        return np.concatenate(rows), np.concatenate(cols)
+
+    def node_adjacency(self) -> List[np.ndarray]:
+        """Per-node sorted neighbour lists (self included) from the
+        connectivity."""
+        n = self.n_nodes
+        r, c = self.adjacency_coo()
+        keys = np.unique(np.concatenate([r.astype(np.int64) * n + c,
+                                         np.arange(n, dtype=np.int64) * (n + 1)]))
+        cols = (keys % n).astype(np.int32)
+        return np.split(cols, np.cumsum(np.bincount(keys // n, minlength=n))[:-1])
 
 
 _NODES_PER_TYPE = {XDA_TRI3: 3, XDA_QUAD4: 4}
@@ -164,6 +199,50 @@ def read_xda(path: str) -> ShellMesh:
         parts = _strip_comment(lines[idx + b]).split()
         bcs[b] = [int(parts[0]), int(parts[1]), int(parts[2])]
     return ShellMesh(coords, elem_types, elem_conn, bcs)
+
+
+def _fmt_g(x: float) -> str:
+    """C++ default ostream double formatting (6 significant digits)."""
+    return f"{x:.6g}"
+
+
+def write_xda(mesh: ShellMesh, path: str) -> None:
+    """Write the mesh in the XDA dialect meshGen produces
+    (main_all.cpp:232-338), so outputs stay loadable by the reference."""
+    out = [
+        "libMesh-0.7.0+",
+        f"{mesh.n_elems}      # number of elements",
+        f"{mesh.n_nodes}      # number of nodes",
+        ".        # boundary condition specification file",
+        "n/a      # subdomain id specification file",
+        "n/a      # processor id specification file",
+        "n/a      # p-level specification file",
+        f"{mesh.n_elems}      # n_elem at level 0, [ type (n0 ... nN-1) ]",
+    ]
+    for e in range(mesh.n_elems):
+        t = int(mesh.elem_types[e])
+        conn = " ".join(str(int(v)) for v in mesh.elem_conn[e, : _NODES_PER_TYPE[t]])
+        out.append(f"{t} {conn}")
+    for x, y, z in mesh.coords:
+        out.append(f"{_fmt_g(x)} {_fmt_g(y)} {_fmt_g(z)}")
+    out.append(f"{len(mesh.boundary_sides)}        # number of boundary conditions")
+    for elem, side, bcid in mesh.boundary_sides:
+        out.append(f"{int(elem)} {int(side)} {int(bcid)}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(out) + "\n")
+
+
+def write_forces(path: str, n_nodes: int, factor: float, rows: np.ndarray, n_rows: int | None = None) -> None:
+    """Write a ``_f`` file. ``rows`` is [n,6] *unscaled* per-node rows;
+    ``n_rows`` lets the caller reproduce the meshGen ``n_nodes-1`` quirk."""
+    rows = np.asarray(rows)
+    if n_rows is None:
+        n_rows = rows.shape[0]
+    out = [f"{n_nodes}", _fmt_g(factor)]
+    for i in range(n_rows):
+        out.append(" ".join(_fmt_g(v) for v in rows[i]))
+    with open(path, "w") as fh:
+        fh.write("\n".join(out) + "\n")
 
 
 def force_path_for(mesh_path: str) -> str:

@@ -15,16 +15,19 @@ force rows as the reference tool:
   (main_all.cpp:341-387), including the reference quirk of emitting only
   ``n_nodes-1`` rows (the last node's row is zero).
 
-Writing .xda / force files is not ported yet (ROADMAP.md, Queue 1).
+``write_files`` and the CLI ``main`` (``python -m
+fem_shell_tpu_torch.meshgen``, the same 13 positional arguments as
+meshGen) write ``<name>.xda`` and ``<name>_f``, byte for byte as the JAX
+package's meshgen does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-from fem_shell_tpu_torch.mesh import ShellMesh, XDA_QUAD4, XDA_TRI3
+from fem_shell_tpu_torch.mesh import ShellMesh, XDA_QUAD4, XDA_TRI3, write_forces, write_xda
 
 LOAD_NONE = 0
 LOAD_CONCENTRATED = 1  # unit force on central node n_nodes//2
@@ -152,3 +155,50 @@ def generate(p: MeshGenParams) -> Tuple[ShellMesh, np.ndarray, float]:
         factor = p.factor * fracx * fracy
         rows[: n_nodes - 1, force_dir] = 1.0
     return mesh, rows, factor
+
+
+def write_files(p: MeshGenParams, basename: str) -> ShellMesh:
+    """Emit ``<basename>.xda`` (and ``<basename>_f`` when loading != 0) in
+    the reference tool's format, with its ``n_nodes-1`` force rows."""
+    mesh, rows, factor = generate(p)
+    write_xda(mesh, basename + ".xda")
+    if p.loading > 0:
+        write_forces(basename + "_f", mesh.n_nodes, factor, rows, n_rows=mesh.n_nodes - 1)
+    return mesh
+
+
+def main(argv: Optional[list] = None) -> int:
+    """CLI: the 13 positional arguments of the reference meshGen."""
+    import sys
+
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) != 13:
+        print(
+            "usage: femshell-meshgen type nx ny min_x min_y max_x max_y "
+            "bcids factor loading ul_lr dead-axis filename"
+        )
+        return -1
+    bc = tuple(int(v) for v in args[7].split(","))
+    if len(bc) != 4:
+        print("bcids must be a comma-separated list of 4 ids (use -1 for none)")
+        return -1
+    p = MeshGenParams(
+        elem_type=args[0].lower(),
+        nx=int(args[1]),
+        ny=int(args[2]),
+        min_x=float(args[3]),
+        min_y=float(args[4]),
+        max_x=float(args[5]),
+        max_y=float(args[6]),
+        bcids=bc,  # type: ignore[arg-type]
+        factor=float(args[8]),
+        loading=int(args[9]),
+        ul_lr=int(args[10]) == 1,
+        dead_axis=args[11],
+    )
+    write_files(p, args[12])
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

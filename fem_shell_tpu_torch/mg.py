@@ -12,13 +12,22 @@ port of the fused core of ``fem_shell_tpu/mg.py``.
 - the coarsest level is solved with a Cholesky factor of the diagonally
   scaled dense operator.
 
-Two configurations are ported:
+Three configurations are ported:
 
-- ``MultigridShellSystem(mesh, material).solve_fused(forces)`` assembles
-  every level in f64, builds the preconditioner and runs f64 PCG over the
-  fine operator, preconditioned by the f32 V-cycle. Every matvec goes
-  through ``ops/stencil_spmv.stencil_spmv``: f64 for the outer CG, f32 in
-  the V-cycle.
+- ``MultigridShellSystem(mesh, material)`` (the JAX default,
+  ``assemble=True``, dtype float64) builds every level in f64 in the
+  constructor, with the per-level damping and the coarsest level's f64
+  host inverse. ``solve(forces)`` runs f64 PCG over the fine operator,
+  preconditioned by the all-f64 V-cycle; every level's matvec goes
+  through ``ops/stencil_spmv.stencil_spmv`` in f64. ``solve_df`` runs the
+  same f64 CG with the V-cycle on f32 copies of the levels (the JAX
+  package's df CG, in native f64). ``reassemble`` rebuilds the levels.
+- ``MultigridShellSystem(mesh, material, assemble=False).solve_fused(forces)``
+  assembles every level in f64 on every call, builds the preconditioner
+  and runs f64 PCG over the fine operator, preconditioned by the f32
+  V-cycle. Every matvec goes through ``ops/stencil_spmv.stencil_spmv``:
+  f64 for the outer CG, f32 in the V-cycle. (``solve_fused`` also runs on
+  an assembled system.)
 - ``MultigridShellSystem(mesh, material, dtype=torch.float32,
   df_operator=True, smoother="chebyshev")`` builds its levels in the
   constructor (the scale configuration): on a uniform grid the fine
@@ -50,10 +59,9 @@ Two configurations are ported:
 On the TPU the JAX package runs the outer CG in two-float32 ("df")
 arithmetic because its f64 is emulated; on a GPU f64 is native, so the
 port's CG is f64 wherever the JAX package's is df. Galerkin coarse
-operators (curved shells), W/K cycles, the df-valued cycle, the
-f64-levels ``solve`` path (``assemble=True`` without ``df_operator``),
-and the level-0 class operator on the coarsest level are not ported yet
-(ROADMAP.md).
+operators (curved shells), W/K cycles, the df-valued cycle, f32 levels
+without ``df_operator`` (the f32 exact-geometry assembly) and the level-0
+class operator on the coarsest level are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -185,6 +193,7 @@ class _Level:
     chol_scale: Optional[torch.Tensor] = None  # d^-1/2 for the scaled factor
     lam: Optional[torch.Tensor] = None  # lambda_max(D^-1 A) estimate (0-d)
     cparts: Optional[ClassParts] = None  # matrix-free class operator (values None)
+    dense_inv: Optional[torch.Tensor] = None  # coarsest f64 level: host inverse, uploaded
 
 
 def _to_grid(x, lvl: _Level):
@@ -247,10 +256,11 @@ class MultigridShellSystem:
         dtype=torch.float64,
         n_levels: Optional[int] = None,
         nu_smooth: int = 3,
+        omega: Optional[float] = None,
         coarse_max: int = 8,
         chunk: int = 16384,
         df_operator: bool = False,
-        assemble: Optional[bool] = None,
+        assemble: bool = True,
         smoother: str = "jacobi",
         class_operator: Optional[bool] = None,
         coarse_op: Optional[str] = None,
@@ -259,28 +269,28 @@ class MultigridShellSystem:
         strip_nodes: int = 65536,
         device=None,
     ):
-        """Without ``df_operator`` (dtype float64) levels are built lazily:
-        ``solve_fused`` assembles them on every call, the JAX package's
-        fused configuration. ``df_operator=True`` (dtype float32, the f32
-        V-cycle levels beside the f64 CG) builds every level here;
-        ``class_operator`` picks its fine level: None = the class operator
-        where ``build_exact_stencil`` accepts the mesh, else the
-        materialized f64 operator; True = require the class operator
-        (raises on non-uniform grids); False = the materialized operator.
-        ``assemble`` defaults to ``df_operator``: the JAX package's default
-        (assemble=True) for the scale configuration, and the fused path
-        otherwise. ``sym_spmv`` keeps the materialized fine operator's
+        """With ``assemble`` (the default) every level is built here: in f64
+        without ``df_operator`` (dtype float64; ``solve``, ``solve_df``),
+        or with ``df_operator=True`` (dtype float32) as f32 V-cycle levels
+        beside the f64 CG (``solve_df``, ``solve_df_refined``).
+        ``assemble=False`` (dtype float64) builds nothing here:
+        ``solve_fused`` assembles every level on every call, the JAX
+        package's fused configuration. ``class_operator`` picks the
+        df_operator fine level: None = the class operator where
+        ``build_exact_stencil`` accepts the mesh, else the materialized f64
+        operator; True = require the class operator (raises on non-uniform
+        grids); False = the materialized operator. ``omega`` fixes the
+        Jacobi damping of every level (None: 4 / (3 lambda_max) per level
+        from a power iteration, which Chebyshev smoothing always takes its
+        interval from). ``sym_spmv`` keeps the materialized fine operator's
         upper half for the CG matvec (symmetric storage); None = on from
         ``large.GRID_MIN_ELEMENTS`` (65,536) elements, the JAX package's
         threshold, on any device. Every assembled level is built by the
         scatter-free grid pipeline (``LargeShellSystem.assemble_df``,
         ``strip_nodes`` nodes per strip) at every mesh size.
-        ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host.
-        Each level's smoother is damped with omega = 4/(3 lambda_max)."""
+        ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host."""
         if isinstance(mesh, MeshGenParams):
             mesh, _, _ = generate(mesh)
-        if assemble is None:
-            assemble = df_operator
         if df_operator:
             if dtype != torch.float32:
                 raise ValueError(
@@ -289,16 +299,11 @@ class MultigridShellSystem:
                 )
             if not assemble:
                 raise ValueError("df_operator=True builds its levels in the constructor")
-        else:
-            if dtype != torch.float64:
-                raise NotImplementedError(
-                    "solve_fused assembles levels in f64: construct "
-                    "MultigridShellSystem(..., dtype=torch.float64)"
-                )
-            if assemble:
-                raise NotImplementedError(
-                    f"assemble=True (the multi-dispatch solve path): {_ROADMAP}; use solve_fused"
-                )
+        elif dtype != torch.float64:
+            raise NotImplementedError(
+                "f32 levels without df_operator (the f32 exact-geometry assembly): "
+                f"{_ROADMAP}; construct MultigridShellSystem(..., dtype=torch.float64)"
+            )
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         if cycle not in (None, "V", "W", "K"):
@@ -310,6 +315,7 @@ class MultigridShellSystem:
         self.dtype = dtype
         self.df_operator = bool(df_operator)
         self.nu_smooth = nu_smooth
+        self.omega = omega
         self.smoother = smoother
         self.cheby_lo = 0.25
         self.cycle = "V"
@@ -387,29 +393,49 @@ class MultigridShellSystem:
         self._exact_st = None  # the fine grid's longdouble class tables, once built
         self._pair_tabs = None  # their flat (t0, t1, class) tables for the pair path
         # None = try the class operator, True = it is required, False = pair
-        self._class_mode = class_operator if n_levels > 1 else False
-        if df_operator:
+        self._class_mode = class_operator if (df_operator and n_levels > 1) else False
+        self._levels32: Optional[List[_Level]] = None  # solve_df's f32 copies of f64 levels
+        if assemble:
             self._assemble_levels()
 
     # ------------------------------------------------------------------
     def _assemble_levels(self):
-        """Build (or rebuild) every df_operator level: the fine class
-        operator, or the materialized f64 fine operator; coarse levels
-        assembled in f64 and kept in f32 with the diagonal of the f64
-        values (the JAX package's df-assembly hi part), every assembled
-        level through the grid pipeline (the JAX package does so from
-        ``large.GRID_MIN_ELEMENTS`` fine elements, fem_shell_tpu/mg.py:658-662,
-        and scatters below); per-level damping from the power iteration;
-        the coarsest level's factor; the fine operator's upper half
-        (``_build_fine_sym``). Each old operator is released before its
-        level is rebuilt."""
+        """Build (or rebuild) every level. Without df_operator: every level
+        in f64 (values, diagonal, damping), the coarsest with its f64 host
+        inverse; the JAX package assembles these with ``assemble()``
+        (fem_shell_tpu/mg.py:676), the port through the grid pipeline, whose
+        sums have one order. With df_operator: the fine class operator, or
+        the materialized f64 fine operator; coarse levels assembled in f64
+        and kept in f32 with the diagonal of the f64 values (the JAX
+        package's df-assembly hi part); the coarsest level's f32 factor;
+        the fine operator's upper half (``_build_fine_sym``). Every
+        assembled level comes from the grid pipeline (the JAX package does
+        so from ``large.GRID_MIN_ELEMENTS`` fine elements,
+        fem_shell_tpu/mg.py:658-662, and scatters below), and each level's
+        damping from ``_level_omega``. Each old operator is released
+        before its level is rebuilt."""
         self._cdf = self._fine64 = self._fine_sym = None
+        self._levels32 = None  # stale f32 copies of the old values
         self._class_pair_done = False
         for l, sys_l in enumerate(self._systems):
-            lvl = dataclasses.replace(self.levels[l], values=None, cparts=None)
+            lvl = dataclasses.replace(self.levels[l], values=None, cparts=None, dense_inv=None)
             self.levels[l] = lvl
             if l == 0:
                 self._fine = lvl  # drop the old level-0 values with this alias too
+            if not self.df_operator:
+                v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
+                                             with_diag=True)
+                lvl = dataclasses.replace(
+                    lvl, values=v64, free_t=sys_l.free_t,
+                    inv_diag=torch.where(d64 != 0, 1.0 / d64, torch.ones_like(d64)))
+                del v64, d64
+                if l == self.n_levels - 1:
+                    lvl = self._coarse_factor(lvl)
+                else:
+                    om, lam = self._level_omega(lvl)
+                    lvl = dataclasses.replace(lvl, omega=om, lam=lam)
+                self.levels[l] = lvl
+                continue
             free32 = sys_l.free_t.to(torch.float32)
             cparts = None
             if l == 0 and self._class_mode is not False:
@@ -441,8 +467,8 @@ class MultigridShellSystem:
             if l == self.n_levels - 1:
                 lvl = self._coarse_factor(lvl)
             else:
-                lam = self._power_lambda(lvl)
-                lvl = dataclasses.replace(lvl, omega=torch.clamp(4.0 / (3.0 * lam), 0.2, 1.0), lam=lam)
+                om, lam = self._level_omega(lvl)
+                lvl = dataclasses.replace(lvl, omega=om, lam=lam)
             self.levels[l] = lvl
         self._fine = self.levels[0]
         self._cdf = self._fine.cparts
@@ -467,12 +493,17 @@ class MultigridShellSystem:
         return build_class_parts(self._exact_st, sys_l.pattern.n_pad, device=self.device)
 
     def _coarse_factor(self, c: _Level) -> _Level:
-        """Coarsest-level factor of the df_operator hierarchy: f32
+        """Coarsest-level direct solve. f64 levels: the inverse of the
+        dense operator, computed on the host in f64 and uploaded once per
+        (re)assembly (the JAX package's f64 mode). df_operator levels: f32
         Cholesky of the diagonally scaled dense operator, with the JAX
         package's eps cascade: if the factor fails, the scaled operator
         (unit diagonal, so the shifts are relative) is shifted by 1e-5,
         then 1e-3; a shift on a preconditioner-only coarse solve is
         harmless. (solve_fused keeps its own unshifted factor.)"""
+        if not self.df_operator:
+            inv = np.linalg.inv(_densify(c).cpu().numpy())
+            return dataclasses.replace(c, dense_inv=torch.as_tensor(inv, device=self.device))
         dense = _densify(c)
         d = torch.diagonal(dense)
         s = torch.where(d > 0, torch.rsqrt(d), torch.ones_like(d))
@@ -498,6 +529,17 @@ class MultigridShellSystem:
         if lvl.cparts is not None:
             return class_matvec_f32(lvl.cparts, x, w=w, b=b)
         return w * (b - self._mv(lvl, x))
+
+    def _level_omega(self, lvl: _Level):
+        """(omega, lambda_max) of one level: omega = 4 / (3 lambda_max(D^-1
+        A)) clipped to [0.2, 1], lambda_max from ``_power_lambda``. The
+        constructor's ``omega`` overrides the damping; Chebyshev smoothing
+        still takes lambda_max from the power iteration."""
+        if self.omega is not None:
+            lam = self._power_lambda(lvl) if self.smoother == "chebyshev" else None
+            return torch.tensor(self.omega, dtype=lvl.inv_diag.dtype, device=lvl.inv_diag.device), lam
+        lam = self._power_lambda(lvl)
+        return torch.clamp(4.0 / (3.0 * lam), 0.2, 1.0), lam
 
     def _power_lambda(self, lvl: _Level):
         """lambda_max(D^-1 A) UPPER estimate for one level (0-d tensor):
@@ -564,6 +606,14 @@ class MultigridShellSystem:
             y = torch.linalg.solve_triangular(lvl.chol, rhs, upper=False)
             z = torch.linalg.solve_triangular(lvl.chol.mT, y, upper=True)
             flat = (lvl.chol_scale * z[:, 0]).reshape(6, n_real)
+            return F.pad(flat, (0, lvl.npad - n_real)) * lvl.free_t
+        if lvl.dense_inv is not None:
+            # the f64 inverse applied in its own dtype over the real nodes,
+            # the result cast to the cycle's (its entries can span the f32
+            # range on an ill-conditioned coarsest operator)
+            n_real = lvl.nyp * lvl.nxp
+            rhs = b[:, :n_real].reshape(-1).to(lvl.dense_inv.dtype)
+            flat = torch.matmul(lvl.dense_inv, rhs).reshape(6, n_real).to(b.dtype)
             return F.pad(flat, (0, lvl.npad - n_real)) * lvl.free_t
         x = torch.zeros_like(b)
         x = self._smooth(lvl, x, b, self.nu_smooth)
@@ -666,8 +716,50 @@ class MultigridShellSystem:
         self.last_residual = float(res)
         return x64[:, :n].T.contiguous()
 
+    def _require_f64_levels(self, what: str):
+        if self.df_operator:
+            raise ValueError(f"{what} on f64 levels: df_operator=True systems solve with "
+                             "solve_df / solve_df_refined")
+        if self.levels[0].values is None:
+            raise ValueError(f"{what} needs assembled levels: construct with assemble=True "
+                             "(the default) or call reassemble()")
+
     def solve(self, forces, rtol: float = 1e-10, maxiter: int = 2000):
-        raise NotImplementedError(f"MultigridShellSystem.solve: {_ROADMAP}; use solve_fused")
+        """f64 PCG to ``rtol`` over the f64 fine operator, preconditioned by
+        the f64 V-cycle (the JAX package's ``solve`` on f64 levels): every
+        level's matvec is ``stencil_spmv`` in f64, the coarsest level's
+        solve the uploaded host inverse. ``forces`` is host [n, 6] or a
+        staged [6, npad] tensor. Returns the f64 displacements [n_nodes, 6]
+        on the device; sets ``last_cg`` (``CGResult``, x in the [6, npad]
+        layout). Nothing syncs the device but the CG's norm reads."""
+        self._require_f64_levels("solve")
+        fine = self.levels[0]
+        b = self._staged_forces(forces) * fine.free_t
+
+        def mv(x):
+            return stencil_spmv(fine.values, x, fine.offsets)
+
+        def prec(r):
+            return self._vcycle(self.levels, 0, r)
+
+        res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=prec)
+        self.last_cg = res
+        return self._out(res.x, False)
+
+    def _ensure_f32_levels(self):
+        """f32 copies of the f64 levels for ``solve_df``'s V-cycle, made once
+        per (re)assembly. The coarsest level keeps its f64 inverse."""
+        if self._levels32 is not None:
+            return
+        f32 = torch.float32
+        self._levels32 = [
+            dataclasses.replace(
+                l, values=l.values.to(f32), free_t=l.free_t.to(f32), inv_diag=l.inv_diag.to(f32),
+                omega=None if l.omega is None else l.omega.to(f32),
+                lam=None if l.lam is None else l.lam.to(f32),
+            )
+            for l in self.levels
+        ]
 
     # ------------------------------------------------------------------
     # df_operator solves: f64 PCG over the fine operator (the JAX
@@ -776,16 +868,31 @@ class MultigridShellSystem:
 
     def solve_df(self, forces, rtol: float = 1e-9, maxiter: int = 2000,
                  return_device: bool = False):
-        """f64 PCG to ``rtol`` over the fine operator (df_operator=True).
+        """f64 PCG to ``rtol`` over the fine operator, preconditioned by the
+        f32 V-cycle: the df_operator levels, or f32 copies of the f64
+        levels (the JAX package's df CG over f64 levels, in native f64).
         ``forces`` is host [n, 6] or a staged [6, npad] tensor. Returns the
         displacements as an f64 tensor [n_nodes, 6] on the device, or with
         ``return_device`` the [6, npad] solution vector; ``last_iters`` and
         ``last_residual`` hold the CG count and relative residual."""
         if not self.df_operator:
-            raise NotImplementedError(
-                f"solve_df over f64-assembled levels (df_operator=False): {_ROADMAP}")
-        b = self._staged_forces(forces) * self._systems[0].free_t
-        x, it, res = self._inner_solve(b, rtol, maxiter)
+            # f64 levels: the CG over the f64 fine operator, the V-cycle on
+            # their f32 copies (the JAX package's _solve_df_impl, whose df
+            # CG native f64 replaces)
+            self._require_f64_levels("solve_df")
+            self._ensure_f32_levels()
+            fine, levels32 = self.levels[0], self._levels32
+            b = self._staged_forces(forces) * fine.free_t
+
+            def prec32(r):
+                return self._vcycle(levels32, 0, r.to(torch.float32)).to(torch.float64)
+
+            res = pcg(lambda x: stencil_spmv(fine.values, x, fine.offsets), b, rtol=rtol,
+                      maxiter=maxiter, apply_prec=prec32)
+            x, it, res = res.x, res.iters, res.residual
+        else:
+            b = self._staged_forces(forces) * self._systems[0].free_t
+            x, it, res = self._inner_solve(b, rtol, maxiter)
         self.last_iters = int(it)
         self.last_residual = float(res)
         return self._out(x, return_device)
@@ -835,14 +942,13 @@ class MultigridShellSystem:
         return self._out(x, return_device)
 
     def reassemble(self):
-        """Rebuild every level's operator (df_operator=True): the class
-        tables from the mesh on the class level, f64 assembly elsewhere,
-        then the damping and the coarsest factor. On the pair path the
-        next ``solve_df_refined`` swaps the class-consistent operator in
-        again (its host tables are kept). A coupled FSI loop calls it
-        when the geometry changes; benchmarks time it with the solve."""
-        if not self.df_operator:
-            raise NotImplementedError(f"reassemble without df_operator=True: {_ROADMAP}")
+        """Rebuild every level's operator: the class tables from the mesh on
+        a class level, f64 assembly elsewhere, then the damping and the
+        coarsest factor (``solve_df``'s f32 copies are made again). On the
+        pair path the next ``solve_df_refined`` swaps the class-consistent
+        operator in again (its host tables are kept). A coupled FSI loop
+        calls it when the geometry changes; benchmarks time it with the
+        solve."""
         self._assemble_levels()
 
 

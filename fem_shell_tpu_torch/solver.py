@@ -7,7 +7,8 @@ exactly: stop when ||r|| <= max(rtol ||b||, atol), at ``maxiter``, or when
 the residual has grown for 8 consecutive iterations and sits above
 ``blowup_factor`` times its start (the divergence guard; a healthy MG-CG
 may spike its residual ~1e4x on iteration 1, so a single spike never
-stops it).
+stops it). ``dense_solve`` is the direct solve on a densified operator
+(small systems, the oracle path).
 """
 from __future__ import annotations
 
@@ -74,3 +75,8 @@ def pcg(
         it += 1
     rel = rn / b_norm if b_norm > 0 else rn
     return CGResult(x, it, rel)
+
+
+def dense_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Direct dense solve (small systems / oracle path)."""
+    return torch.linalg.solve(a, b)

@@ -1,0 +1,206 @@
+"""Stand-alone solver CLI — the ``FEM-shell`` executable analog, port of
+``fem_shell_tpu/utils/cli.py``.
+
+    python -m fem_shell_tpu_torch.utils.cli -nu 0.3 -e 1e7 -t 0.5 -mesh plate.xda -out plate
+
+The reference flag surface (fem-shell.cpp:194-267):
+  -nu    Poisson's ratio (required)
+  -e     Young's modulus E (required)
+  -t     thickness (required)
+  -mesh  input mesh file (*.xda, required; *_f force file by convention)
+  -out   output file base name (optional; writes <out>.vtu, <out>.vtk and
+         <out>.e)
+  -d     debug output 1|0
+
+plus the JAX package's extras, with the same printed lines, warnings,
+exit codes and output files:
+  --rtol      linear solver relative tolerance (default 1e-10)
+  --maxiter   CG iteration cap
+  --method    pcg | dense (ShellSystem)
+  --precond   block_jacobi | jacobi (ShellSystem) | mg (geometric
+              multigrid, structured grids: MultigridShellSystem.solve,
+              f64 levels)
+  --df        with --precond mg: solve_df on the f64 levels (f64 CG, f32
+              V-cycle); native f64 takes the place of the JAX package's
+              f32-assembled two-float32 operator
+  --refined   with --precond mg: the df_operator system's
+              solve_df_refined (refinement against the class tables)
+  --device    cuda (default) | cpu
+
+Flags whose path is not ported yet print an ERROR naming ROADMAP.md and
+exit 2: --precond amg, --devices > 1, --reorder, --stress, --f32, and
+--df / --refined without --precond mg.
+"""
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+
+def _parse(argv: List[str]):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="fem-shell",
+        description="flat-shell FEM solver on PyTorch/CUDA (fem-shell analog)",
+    )
+    ap.add_argument("-nu", type=float, required=True, help="Poisson's ratio")
+    ap.add_argument("-e", type=float, required=True, help="Young's modulus E")
+    ap.add_argument("-t", type=float, required=True, help="thickness")
+    ap.add_argument("-mesh", required=True, help="input mesh (*.xda)")
+    ap.add_argument("-out", default=None, help="output base name (optional)")
+    ap.add_argument("-d", type=int, default=0, help="debug messages 1|0")
+    ap.add_argument("--rtol", type=float, default=1e-10)
+    ap.add_argument("--maxiter", type=int, default=20000)
+    ap.add_argument("--method", choices=("pcg", "dense"), default="pcg")
+    ap.add_argument(
+        "--precond",
+        choices=("block_jacobi", "jacobi", "mg", "amg"),
+        default="block_jacobi",
+        help="mg = geometric multigrid V-cycle (structured grid meshes; "
+        "mesh-independent iteration counts); amg is not ported yet",
+    )
+    ap.add_argument("--reorder", choices=("rcm",), default=None, help="not ported yet")
+    ap.add_argument("--stress", action="store_true", help="not ported yet")
+    ap.add_argument("--f32", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--df",
+        action="store_true",
+        help="with --precond mg: f64 CG preconditioned by the V-cycle on f32 "
+        "copies of the f64 levels (native f64 replaces the JAX package's "
+        "f32-assembled two-float32 operator)",
+    )
+    ap.add_argument(
+        "--refined",
+        action="store_true",
+        help="with --precond mg: refinement against the exact class-table "
+        "operator (df_operator=True, solve_df_refined)",
+    )
+    ap.add_argument("--devices", type=int, default=1, help="values > 1 are not ported yet")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="device to solve on (default cuda)")
+    return ap.parse_args(argv)
+
+
+def _unported(args) -> Optional[str]:
+    """The first requested path that is not ported yet, as '<what> ... item
+    N', or None."""
+    if args.precond == "amg":
+        return "--precond amg (smoothed-aggregation AMG) is not ported yet (ROADMAP.md Queue 1 item 8)"
+    if args.devices > 1:
+        return "--devices > 1 (sharded solves) is not ported yet (ROADMAP.md Queue 1 item 9)"
+    if args.reorder:
+        return "--reorder (RCM node reordering) is not ported yet (ROADMAP.md Queue 1 item 6)"
+    if args.stress:
+        return "--stress (stress recovery) is not ported yet (ROADMAP.md Queue 1 item 10)"
+    if args.f32:
+        item = 6 if args.precond == "mg" else 11
+        return f"--f32 (f32 assembly) is not ported yet (ROADMAP.md Queue 1 item {item})"
+    if (args.df or args.refined) and args.precond != "mg":
+        return ("--df / --refined without --precond mg (LargeShellSystem's df solves) is not "
+                "ported yet (ROADMAP.md Queue 1 item 6)")
+    return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = _parse(sys.argv[1:] if argv is None else argv)
+    why = _unported(args)
+    if why is not None:
+        print(f"ERROR: {why}")
+        return 2
+
+    import math
+
+    import numpy as np
+    import torch
+
+    from fem_shell_tpu_torch.io.vtk import write_legacy_vtk, write_vtu
+    from fem_shell_tpu_torch.materials import Material
+    from fem_shell_tpu_torch.mesh import load_mesh_and_forces
+    from fem_shell_tpu_torch.system import ShellSystem
+
+    print(
+        f"Run program with parameters: debug messages = "
+        f"{'true' if args.d else 'false'}, nu = {args.nu}, E = {args.e}, "
+        f"t = {args.t}, mesh file = {args.mesh}"
+        + (f", out-file = {args.out}" if args.out else "")
+    )
+    mesh, forces = load_mesh_and_forces(args.mesh)
+    print(
+        f"Mesh: {mesh.n_nodes} nodes, {mesh.n_elems} elements "
+        f"({len(mesh.tri)} tri, {len(mesh.quad)} quad), {mesh.n_dofs} dofs"
+    )
+    if not np.any(forces):
+        print(
+            "WARNING: all nodal loads are zero (missing or empty "
+            f"'{args.mesh.rsplit('.',1)[0]}_f' force file?) — solution will be zero."
+        )
+    material = Material(nu=args.nu, em=args.e, thickness=args.t)
+    device = args.device
+
+    if args.precond == "mg":
+        from fem_shell_tpu_torch.mg import MultigridShellSystem, detect_structured_grid
+
+        if detect_structured_grid(mesh) is None:
+            print("ERROR: --precond mg needs a row-major structured grid mesh.")
+            return 2
+        if args.refined:
+            system = MultigridShellSystem(mesh, material, dtype=torch.float32, df_operator=True,
+                                          device=device)
+            u = system.solve_df_refined(forces, rtol=args.rtol, maxiter=args.maxiter)
+            iters, res = system.last_iters, system.last_residual
+        elif args.df:
+            system = MultigridShellSystem(mesh, material, device=device)
+            u = system.solve_df(forces, rtol=args.rtol, maxiter=args.maxiter)
+            iters, res = system.last_iters, system.last_residual
+        else:
+            system = MultigridShellSystem(mesh, material, device=device)
+            u = system.solve(forces, rtol=args.rtol, maxiter=args.maxiter)
+            iters, res = int(system.last_cg.iters), float(system.last_cg.residual)
+    else:
+        system = ShellSystem(mesh, material, device=device)
+        u = system.solve(forces, method=args.method, rtol=args.rtol, maxiter=args.maxiter,
+                         precond=args.precond)
+        if args.method == "pcg":
+            iters, res = int(system.last_cg.iters), float(system.last_cg.residual)
+        else:
+            iters, res = 0, 0.0
+    u = u.cpu().numpy()
+    if args.method == "pcg":
+        print(f"Linear solve: {iters} CG iterations, relative residual {res:.3e}")
+        if not math.isfinite(res):
+            print("ERROR: linear solve diverged (non-finite residual) — "
+                  "check material parameters and boundary conditions.")
+            return 2
+        if res > args.rtol * 10:
+            print(f"WARNING: solver stopped above the requested tolerance "
+                  f"({res:.2e} > {args.rtol:.0e}); increase --maxiter.")
+
+    if args.d:
+        print("Solution: u_vec = [")
+        for i in range(mesh.n_nodes):
+            print(
+                f"u= {u[i,0]:.6g}, v= {u[i,1]:.6g}, w= {u[i,2]:.6g}, "
+                f"tx= {u[i,3]:.6g}, ty= {u[i,4]:.6g}, tz= {u[i,5]:.6g}"
+            )
+        print("]")
+
+    if args.out:
+        write_vtu(mesh, args.out + ".vtu", displacement=u, displace=True)
+        write_legacy_vtk(mesh, args.out + ".vtk", displacement=u, displace=True)
+        wrote = [args.out + ".vtu", args.out + ".vtk"]
+        try:
+            from fem_shell_tpu_torch.io.exodus import write_exodus
+
+            write_exodus(mesh, args.out + ".e", displacements=u)
+            wrote.append(args.out + ".e")
+        except RuntimeError:
+            pass  # scipy unavailable; VTK outputs cover visualization
+        print("Wrote " + " and ".join(wrote))
+
+    print("All done :)")
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

@@ -1,0 +1,154 @@
+"""Port parity: the port's meshgen CLI, result writers and solver CLI
+(fem_shell_tpu_torch.meshgen.main, io/vtk.py, io/exodus.py,
+utils/cli.py) against the JAX package's, on the CPU.
+
+- meshgen writes the same bytes (.xda and _f);
+- given the same mesh and the same solution array, the writers write the
+  same .vtu, .vtk and .e bytes;
+- the solver CLI (``--device cpu``) prints the JAX CLI's lines on an 8x8
+  plate, for the default route (ShellSystem, block-Jacobi PCG, with the
+  ``-d`` dump) and for ``--precond mg`` (MultigridShellSystem.solve): the
+  iteration count within one, every other number to 1e-10 of the largest
+  of its kind (the dumped displacements, the .vtu arrays). The relative
+  residual printed at convergence is rounding noise (~1e-13, three
+  digits) in both, so it is held to be below the requested rtol on both
+  sides instead.
+- every flag whose path is not ported exits 2 with an ERROR naming
+  ROADMAP.md.
+"""
+import filecmp
+import re
+
+import numpy as np
+import pytest
+
+from fem_shell_tpu.io.exodus import write_exodus as jwrite_exodus
+from fem_shell_tpu.io.vtk import write_legacy_vtk as jwrite_vtk, write_vtu as jwrite_vtu
+from fem_shell_tpu.mesh import read_xda as jread_xda
+from fem_shell_tpu.meshgen import main as jmeshgen
+from fem_shell_tpu.utils.cli import main as jcli
+from fem_shell_tpu_torch.data import mixed_ibeam_mesh
+from fem_shell_tpu_torch.io.exodus import write_exodus
+from fem_shell_tpu_torch.io.vtk import write_legacy_vtk, write_vtu
+from fem_shell_tpu_torch.mesh import read_xda
+from fem_shell_tpu_torch.meshgen import main as meshgen
+from fem_shell_tpu_torch.utils.cli import main as cli
+
+PLATE = "q 8 8 0 0 10 10 0,0,0,0 300 2 1 z"
+MATERIAL = ["-nu", "0.3", "-e", "1e7", "-t", "0.5"]
+
+
+@pytest.mark.parametrize("args", [
+    PLATE,
+    "t 6 4 -1 0 5 2 0,1,-1,21 1.5 1 0 y",
+    "t 5 5 0 0 1 1 -1,-1,-1,-1 1 0 1 x",
+    "Q 3 7 0.1 0.2 0.7 0.9 20,-1,1,2 1e-4 2 1 z",
+])
+def test_meshgen_cli_writes_the_jax_bytes(tmp_path, args):
+    a = args.split()
+    assert jmeshgen(a + [str(tmp_path / "j")]) == meshgen(a + [str(tmp_path / "t")]) == 0
+    assert filecmp.cmp(tmp_path / "j.xda", tmp_path / "t.xda", shallow=False)
+    loads = (tmp_path / "j_f").exists()
+    assert loads == (tmp_path / "t_f").exists() == (a[9] != "0")
+    if loads:
+        assert filecmp.cmp(tmp_path / "j_f", tmp_path / "t_f", shallow=False)
+
+
+def test_meshgen_cli_usage(capsys):
+    assert meshgen(PLATE.split()) == jmeshgen(PLATE.split()) == -1
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == out[1] and out[0].startswith("usage:")
+
+
+@pytest.mark.parametrize("case", ["plate", "mixed"])
+def test_writers_write_the_jax_bytes(tmp_path, case):
+    if case == "plate":
+        meshgen(PLATE.split() + [str(tmp_path / "p")])
+        mesh, jmesh = read_xda(str(tmp_path / "p.xda")), jread_xda(str(tmp_path / "p.xda"))
+    else:
+        from fem_shell_tpu.mesh import ShellMesh as JShellMesh
+
+        mesh = mixed_ibeam_mesh()
+        jmesh = JShellMesh(mesh.coords, mesh.elem_types, mesh.elem_conn, mesh.boundary_sides)
+    u = np.random.default_rng(7).normal(size=(mesh.n_nodes, 6)) * 1e-3
+    for jfn, fn, ext, kw in ((jwrite_vtu, write_vtu, "vtu", {"displacement": u, "displace": True}),
+                             (jwrite_vtk, write_legacy_vtk, "vtk", {"displacement": u, "displace": True}),
+                             (jwrite_exodus, write_exodus, "e", {"displacements": u})):
+        jfn(jmesh, str(tmp_path / f"j.{ext}"), **kw)
+        fn(mesh, str(tmp_path / f"t.{ext}"), **kw)
+        assert filecmp.cmp(tmp_path / f"j.{ext}", tmp_path / f"t.{ext}", shallow=False), ext
+
+
+def _run(fn, argv, capsys):
+    rc = fn(argv)
+    return rc, capsys.readouterr().out.splitlines()
+
+
+_NUM = re.compile(r"-?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
+
+
+def _vtu_arrays(path):
+    txt = open(path).read()
+    out = {}
+    for name, body in re.findall(r'Name="(\w+)"[^>]*format="ascii">\n(.*?)</DataArray>', txt, re.S):
+        out[name] = np.array([float(v) for v in body.split()])
+    pts = re.search(r"<Points>.*?ascii\">\n(.*?)</DataArray>", txt, re.S).group(1)
+    out["points"] = np.array([float(v) for v in pts.split()])
+    return out
+
+
+@pytest.mark.parametrize("route", [["-d", "1"], ["--precond", "mg"]], ids=["default", "mg"])
+def test_solver_cli_prints_the_jax_lines(tmp_path, capsys, route):
+    base = str(tmp_path / "plate")
+    meshgen(PLATE.split() + [base])
+    rc_j, jout = _run(jcli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_j"] + route, capsys)
+    rc_t, tout = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_t", "--device", "cpu"]
+                      + route, capsys)
+    assert rc_j == rc_t == 0 and len(jout) == len(tout)
+    dump_j, dump_t = [], []
+    for lj, lt in zip(jout, tout):
+        lt = lt.replace(base + "_t", base + "_j")
+        if lj.startswith("Linear solve:"):
+            (ij, rj), (it, rt) = (_NUM.findall(line) for line in (lj, lt))
+            assert abs(int(ij) - int(it)) <= 1 and float(rj) < 1e-10 and float(rt) < 1e-10, (lj, lt)
+            assert _NUM.sub("#", lj) == _NUM.sub("#", lt)
+        elif lj.startswith("u= "):
+            assert _NUM.sub("#", lj) == _NUM.sub("#", lt)
+            dump_j.append([float(v) for v in _NUM.findall(lj)])
+            dump_t.append([float(v) for v in _NUM.findall(lt)])
+        else:
+            assert lj == lt
+    if dump_j:
+        dj, dt = np.array(dump_j), np.array(dump_t)
+        assert dj.shape == (81, 6) and np.abs(dj - dt).max() <= 1e-10 * np.abs(dj).max()
+    vj, vt = _vtu_arrays(base + "_j.vtu"), _vtu_arrays(base + "_t.vtu")
+    assert vj.keys() == vt.keys() == {"points", "connectivity", "offsets", "types", "displacement",
+                                      "rotation"}
+    for name in vj:
+        assert np.abs(vj[name] - vt[name]).max() <= 1e-10 * np.abs(vj[name]).max(), name
+    assert abs(np.abs(vt["displacement"]).max() - 0.106405) < 1e-4  # Test D 8x8
+
+
+@pytest.mark.parametrize("route", [["--precond", "mg", "--df"], ["--precond", "mg", "--refined"],
+                                   ["--method", "dense"], ["--precond", "jacobi"]],
+                         ids=["mg-df", "mg-refined", "dense", "jacobi"])
+def test_solver_cli_other_routes(tmp_path, capsys, route):
+    base = str(tmp_path / "plate")
+    meshgen(PLATE.split() + [base])
+    rc, out = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base, "--device", "cpu"] + route,
+                   capsys)
+    assert rc == 0 and out[-1] == "All done :)" and not any("WARNING" in ln for ln in out)
+    w = _vtu_arrays(base + ".vtu")["displacement"]
+    assert abs(np.abs(w).max() - 0.106405) < 1e-4
+
+
+@pytest.mark.parametrize("flag", [["--precond", "amg"], ["--devices", "2"], ["--reorder", "rcm"],
+                                  ["--stress"], ["--f32"], ["--df"], ["--refined"]],
+                         ids=["amg", "devices", "reorder", "stress", "f32", "df", "refined"])
+def test_unported_flag_exits_2(tmp_path, capsys, flag):
+    base = str(tmp_path / "plate")
+    meshgen(PLATE.split() + [base])
+    rc, out = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base, "--device", "cpu"] + flag, capsys)
+    assert rc == 2 and len(out) == 1
+    assert out[0].startswith("ERROR: ") and "not ported yet (ROADMAP.md Queue 1 item" in out[0]
+    assert not (tmp_path / "plate.vtu").exists()

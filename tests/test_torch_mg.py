@@ -91,7 +91,7 @@ def test_power_lambda_and_vcycle_on_carried_levels(et):
     assert jsys.n_levels == 2
     jl = _jax_levels32(jsys)
     tsys = tmg.MultigridShellSystem(
-        mesh_from_jax(jmesh), material_from_jax(JMAT), coarse_max=4, device="cpu"
+        mesh_from_jax(jmesh), material_from_jax(JMAT), coarse_max=4, assemble=False, device="cpu"
     )
     tl = levels_from_jax(jl, device="cpu")
     assert tl[0].values.dtype == torch.float32 and tl[-1].chol is not None
@@ -129,7 +129,8 @@ def test_solve_fused_matches_jax_f64(et, n):
     forces = rows * fac
     jsys = jmg.MultigridShellSystem(jmesh, JMAT, dtype=jnp.float64, assemble=False)
     ref = jsys.solve_fused(forces, rtol=1e-9, maxiter=400, arith="f64")
-    tsys = tmg.MultigridShellSystem(mesh_from_jax(jmesh), material_from_jax(JMAT), device="cpu")
+    tsys = tmg.MultigridShellSystem(mesh_from_jax(jmesh), material_from_jax(JMAT), assemble=False,
+                                    device="cpu")
     got = tsys.solve_fused(forces, rtol=1e-9, maxiter=400).numpy()
     assert tsys.n_levels == jsys.n_levels
     assert abs(tsys.last_iters - jsys.last_iters) <= 1
@@ -161,7 +162,8 @@ def test_solve_fused_never_scatters(monkeypatch, et):
     forces = rows * fac
     jsys = jmg.MultigridShellSystem(jmesh, JMAT, dtype=jnp.float64, assemble=False)
     ref = jsys.solve_fused(forces, rtol=1e-9, maxiter=400, arith="f64")
-    tsys = tmg.MultigridShellSystem(mesh_from_jax(jmesh), material_from_jax(JMAT), device="cpu")
+    tsys = tmg.MultigridShellSystem(mesh_from_jax(jmesh), material_from_jax(JMAT), assemble=False,
+                                    device="cpu")
     got = tsys.solve_fused(forces, rtol=1e-9, maxiter=400)
     assert calls == [16 // 2**lvl + 1 for lvl in range(tsys.n_levels)]
     assert abs(tsys.last_iters - jsys.last_iters) <= 1 and tsys.last_residual < 1e-9
@@ -174,12 +176,8 @@ def test_unported_paths_raise():
     mesh, mat = mesh_from_jax(jmesh), material_from_jax(JMAT)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmg.MultigridShellSystem(mesh, mat, cycle="K", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmg.MultigridShellSystem(mesh, mat, assemble=True, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tmg.MultigridShellSystem(mesh, mat, df_operator=True, device="cpu")
-    tsys = tmg.MultigridShellSystem(mesh, mat, device="cpu")
+    tsys = tmg.MultigridShellSystem(mesh, mat, assemble=False, device="cpu")
     with pytest.raises(ValueError, match="native f64"):
         tsys.solve_fused(rows * fac, arith="df")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.solve(rows * fac)

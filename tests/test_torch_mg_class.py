@@ -91,7 +91,7 @@ def runs():
         r["res9"] = mg.last_residual
         r["u_ref"] = mg.solve_df_refined(forces, rtol=1e-9)
         r["hist"], r["inner"] = list(mg.refine_history), list(mg.refine_inner_iters)
-        fused = tmg.MultigridShellSystem(mesh, TMAT, device="cpu")
+        fused = tmg.MultigridShellSystem(mesh, TMAT, assemble=False, device="cpu")
         r["u_fused"] = fused.solve_fused(forces, rtol=1e-9)
         out[et] = r
     return out

@@ -1,7 +1,8 @@
 """The port's package rules: fem_shell_tpu_torch (and chip_smoke.py)
 import nothing of JAX or of the JAX package, importing the package builds
 no kernel, and asking for CUDA where there is none raises instead of
-falling back to the CPU."""
+falling back to the CPU (the constructors, and the solver CLI's default
+device)."""
 import ast
 import os
 import re
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, generate
+from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, ShellSystem, generate
 from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.large import LargeShellSystem
 
@@ -27,10 +28,30 @@ from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, g
 from fem_shell_tpu_torch.ops import _build
 p = MeshGenParams("q", 8, 8, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z")
 mesh, rows, fac = generate(p)
-mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), device="cpu")
+mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), assemble=False, device="cpu")
 u = mg.solve_fused(rows * fac)
 assert mg.last_residual < 1e-9
+mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), device="cpu")
+mg.solve(rows * fac)
+assert mg.last_cg.residual < 1e-10 and mg.levels[-1].dense_inv is not None
+import os, tempfile
 import torch
+from fem_shell_tpu_torch import ShellSystem
+from fem_shell_tpu_torch.io.vtk import write_legacy_vtk, write_vtu
+from fem_shell_tpu_torch.meshgen import main as meshgen_main
+from fem_shell_tpu_torch.utils.cli import main as cli_main
+s = ShellSystem(mesh, Material(0.3, 1e7, 0.5), device="cpu")
+u = s.solve(rows * fac)
+assert s.last_cg.residual < 1e-12
+d = tempfile.mkdtemp()
+write_vtu(mesh, os.path.join(d, "u.vtu"), displacement=u.numpy(), displace=True)
+write_legacy_vtk(mesh, os.path.join(d, "u.vtk"), displacement=u.numpy())
+base = os.path.join(d, "plate")
+assert meshgen_main("q 8 8 0 0 10 10 0,0,0,0 300 2 1 z".split() + [base]) == 0
+assert cli_main(["-nu", "0.3", "-e", "1e7", "-t", "0.5", "-mesh", base + ".xda", "-out", base,
+                 "--device", "cpu"]) == 0 and os.path.exists(base + ".vtu")
+assert cli_main(["-nu", "0.3", "-e", "1e7", "-t", "0.5", "-mesh", base + ".xda", "--precond", "mg",
+                 "--device", "cpu"]) == 0
 p = MeshGenParams("t", 12, 12, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, False, "z")
 mesh, rows, fac = generate(p)
 mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), dtype=torch.float32, df_operator=True,
@@ -55,8 +76,9 @@ print("LOADED", sorted(_build._loaded))
 
 def test_package_and_solve_import_no_jax():
     # a fresh interpreter (this test process has imported JAX already)
-    # runs the fused solve, the refined solves of the class operator and
-    # of the materialized pair, and a 12^2 grid assembly
+    # runs the fused solve, the f64 multigrid solve, ShellSystem, the
+    # writers, the meshgen and solver CLIs, the refined solves of the class
+    # operator and of the materialized pair, and a 12^2 grid assembly
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -112,6 +134,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         MultigridShellSystem(mesh, mat)
     with pytest.raises(RuntimeError, match="CUDA"):
         LargeShellSystem(mesh, mat, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShellSystem(mesh, mat)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
