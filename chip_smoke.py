@@ -131,15 +131,21 @@ before the last line:
    package's f64 CPU solves and within 5e-5 of bench.py's goldens,
    block-Jacobi iterations to rtol 1e-10 within 2 % (the count to 1e-12
    is recorded: it falls where a residual stalled at its rounding floor
-   first dips under 1e-12, see JAX_SYSTEM_G) and multigrid iterations
-   within one of the JAX counts, two solves bitwise equal, every multigrid matvec of
-   the solve through stencil_spmv<double> (exactly one per CG iteration
-   plus seven per V-cycle and non-coarsest level) and none through
-   <float>; seconds, seconds per CG iteration and peak memory. The
+   first dips under 1e-12, see JAX_SYSTEM_G; the iteration where the
+   rtol-1e-12 history first reaches 1e-11, the floor, within 2 % of
+   FLOOR_ITERS) and multigrid iterations within one of the JAX counts, two
+   solves bitwise equal, every multigrid matvec of the solve through
+   stencil_spmv<double> (exactly one per CG iteration plus seven per
+   V-cycle and non-coarsest level) and none through <float>; each
+   smoothing level's stencil_spmv<double> against stencil_spmv_plain
+   (1e-13 of max|y|), and one V-cycle against the same V-cycle with the
+   plain matvec at every level (VCYCLE_GATE); seconds, seconds per CG
+   iteration and peak memory. The
    block-ELL matvec (PyTorch: a gather and a batched 6x6 product) timed
    against its bytes bound at 64x64 and on a 1024x1024 quad pattern. Then
    MultigridShellSystem.solve at 1024x1024 tri: converged to rtol 1e-10,
-   centre within 1e-3 of the Kirchhoff value, two solves bitwise equal.
+   centre within 1e-3 of the Kirchhoff value, two solves bitwise equal,
+   its seven levels' matvecs and one V-cycle against the plain version.
    Last, python -m fem_shell_tpu_torch.meshgen and python -m
    fem_shell_tpu_torch.utils.cli in subprocesses on the card (the default
    route and --precond mg): exit 0 and the .vtu displacements equal to the
@@ -258,6 +264,15 @@ ELEM_CASE_GATE = 1e-13
 # gate is taken at rtol 1e-10, before the floor, where every run so far
 # counts the same (779 / 2483).
 JAX_SYSTEM_G = {"q": (1583, 0.10646538200876869, 779), "t": (5004, 0.10641333659903551, 2483)}
+# the first iteration whose relative residual is at most 1e-11 in the
+# port's rtol-1e-12 history on the CPU (tools/torch_pcg_floor_probe.py):
+# where the descent stops and the floor starts (1e-10 came 5 / 11
+# iterations earlier, 1e-12 another 1498 / 1264 later); gated within 2 %
+FLOOR_ITERS = {"q": 784, "t": 2494}
+# of max|y|: one f64 V-cycle against the same V-cycle with every level's
+# matvec the plain version (another summation order; on the CPU, two orders
+# of the plain loop differ by 4e-15 at 64^2 and 1.7e-14 at 256^2)
+VCYCLE_GATE = 1e-12
 JAX_MG_G = {"q": (20, 0.10646538200868508), "t": (44, 0.10641333659918732)}
 # the JAX package's refined 1024^2 tri solve reached this true residual,
 # its df representation floor at that size (BENCH_r05.json)
@@ -1387,6 +1402,8 @@ def system_phase(gates, et, bandwidth, device="cuda"):
     """Test-G through ShellSystem: block-Jacobi PCG to rtol 1e-12, twice,
     launches counted per solve; the block-ELL matvec timed."""
     from fem_shell_tpu_torch import Material, ShellSystem
+    from fem_shell_tpu_torch.ops.assemble import constrained_rhs
+    from fem_shell_tpu_torch.solver import pcg
 
     mesh, rows, fac = plate(et, 64)
     forces = rows * fac
@@ -1428,15 +1445,33 @@ def system_phase(gates, et, bandwidth, device="cuda"):
                 f"{tag}: elem_stiffness launches <3> {launches['elem3']}, <4> {launches['elem4']} == "
                 f"one per family present")
     a = system.assemble()
+    # the same rtol-1e-12 solve with its residual history: where it reaches
+    # the rounding floor (first at or under 1e-11) and how long it stalls
+    hist = []
+    b = constrained_rhs(torch.as_tensor(forces, dtype=torch.float64).to(device), system.free_mask)
+    x = pcg(a.matvec, b, rtol=1e-12, maxiter=20000, apply_prec=system._preconditioner(a, "block_jacobi"),
+            history=hist).x
+    h = np.array(hist)
+    cross = {t: int(np.argmax(h <= t)) + 1 if (h <= t).any() else None for t in (1e-10, 1e-11, 1e-12)}
+    floor_it = cross[1e-11]
+    floor_med = float(np.median(h[floor_it - 1:])) if floor_it else None
+    gates.check(torch.equal(x, u) and floor_it is not None
+                and abs(floor_it - FLOOR_ITERS[et]) <= 0.02 * FLOOR_ITERS[et],
+                f"{tag}: the rtol-1e-12 history (the same solve, bitwise) first at or under 1e-11 at "
+                f"iteration {floor_it}, within 2 % of {FLOOR_ITERS[et]}; 1e-10 at {cross[1e-10]}, 1e-12 at "
+                f"{cross[1e-12]}, median residual from there {floor_med}")
+    del x, b
     mv = ell_matvec_time(a, bandwidth, 200)
     del a
     prof = device_profile(lambda: system.solve(forces, rtol=1e-12, maxiter=20000)) if et == "q" else None
     rec = {"case": tag, "iters": it, "jax_iters": jax_it, "iters_rtol1e-10": it10, "jax_iters_rtol1e-10": jax_it10,
-           "residual": res, "center_w": w, "rel_err_jax": e_jax,
+           "floor_iter": floor_it, "floor_median_residual": floor_med,
+           "history_crossings": {f"{t:g}": v for t, v in cross.items()}, "residual": res, "center_w": w, "rel_err_jax": e_jax,
            "rel_err_golden": e_gold, "setup_s": setup_s, "solve_s": [solve_s, again_s],
            "s_per_iter": solve_s / max(it, 1), "bitwise_repeat": same, "launches": launches,
            "peak_mem_bytes": peak, "ell_matvec": mv, "profile": prof}
-    print(f"  {tag}: iters={it} (JAX {jax_it}; to 1e-10 {it10}, JAX {jax_it10}) residual={res:.2e} "
+    print(f"  {tag}: iters={it} (JAX {jax_it}; to 1e-10 {it10}, JAX {jax_it10}; at or under 1e-11 from "
+          f"{floor_it}, median after {floor_med}) residual={res:.2e} "
           f"w={w:.17g} setup_s={setup_s:.3f} "
           f"solve_s={solve_s:.4f},{again_s:.4f} s/iter={rec['s_per_iter'] * 1e3:.4f} ms "
           f"bitwise={same} peak={peak} matvec {mv['ms']:.4f} ms (bound {mv['bound_ms']:.4f}) "
@@ -1469,6 +1504,57 @@ def ell_matvec_scale(bandwidth, n=1024, device="cuda"):
     del blocks, adj
     torch.cuda.empty_cache()
     return rec
+
+
+def vcycle_plain_checks(gates, mg, tag, device="cuda"):
+    """The f64 V-cycle's kernel against its plain version at the shapes the
+    solve gives it: every smoothing level's stencil_spmv<double> against
+    stencil_spmv_plain on a random x, then one V-cycle on a random staged
+    residual against the same V-cycle with every level's matvec the plain
+    version. Launches counted here are comparison launches: the main
+    path's were read before."""
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_plain
+
+    gen = torch.Generator(device=device).manual_seed(mg.levels[0].npad)
+    levels = []
+    for li, lvl in enumerate(mg.levels):
+        if lvl.dense_inv is not None:
+            continue
+        x = torch.randn((6, lvl.npad), dtype=torch.float64, device=device, generator=gen)
+        y = stencil_spmv(lvl.values, x, lvl.offsets)
+        y_plain = stencil_spmv_plain(lvl.values, x, lvl.offsets)
+        abs_err = float((y - y_plain).abs().max())
+        err = abs_err / float(y_plain.abs().max())
+        levels.append({"level": li, "nodes": f"{lvl.nyp}x{lvl.nxp}", "npad": lvl.npad,
+                       "k": int(lvl.values.shape[1]), "max_abs_err": abs_err, "rel_err": err})
+        gates.check(err <= ERR_GATE[torch.float64] and bool(torch.isfinite(y).all()),
+                    f"{tag} level {li} ({lvl.nyp}x{lvl.nxp}): stencil_spmv<double> max|y-y_plain|/max|y| = "
+                    f"{err:.3e} <= {ERR_GATE[torch.float64]:.0e}")
+        del x, y, y_plain
+    fine = mg.levels[0]
+    r = torch.randn((6, fine.npad), dtype=torch.float64, device=device, generator=gen) * fine.free_t
+    reset_launches()
+    z = mg._vcycle(mg.levels, 0, r)
+    kernel_launches = read_launches()["spmv_f64"]
+    mg._mv = lambda lvl, x: stencil_spmv_plain(lvl.values, x, lvl.offsets)
+    try:
+        reset_launches()
+        z_plain = mg._vcycle(mg.levels, 0, r)
+        plain_launches = read_launches()["spmv_f64"]
+    finally:
+        del mg._mv
+    torch.cuda.synchronize()
+    abs_err = float((z - z_plain).abs().max())
+    err = abs_err / float(z_plain.abs().max())
+    want = 7 * len(levels)
+    gates.check(err <= VCYCLE_GATE and bool(torch.isfinite(z).all()) and kernel_launches == want
+                and plain_launches == 0,
+                f"{tag}: one V-cycle against its plain version: max|z-z_plain|/max|z| = {err:.3e} <= "
+                f"{VCYCLE_GATE:.0e}; stencil_spmv<double> launches {kernel_launches} == {want}, plain "
+                f"{plain_launches} == 0")
+    print(f"  {tag} V-cycle vs plain: rel_err={err:.3e} levels "
+          f"{[(l['nodes'], '%.2e' % l['rel_err']) for l in levels]}", flush=True)
+    return {"levels": levels, "vcycle_max_abs_err": abs_err, "vcycle_rel_err": err}
 
 
 def mg_solve_phase(gates, et, n, device="cuda", reps=2, jax=None, golden=None, gate_rel=5e-5):
@@ -1538,6 +1624,7 @@ def mg_solve_phase(gates, et, n, device="cuda", reps=2, jax=None, golden=None, g
                 f"constructor (grid assembly of every level), {launches[key_elem]} in the solve")
     prof = device_profile(lambda: mg.solve(forces, rtol=1e-10, maxiter=2000))
     rec["profile"] = prof
+    rec["plain_checks"] = vcycle_plain_checks(gates, mg, tag, device)
     print(f"  {tag}: levels={nl} iters={it} residual={res:.2e} w={w:.17g} ctor_s={ctor_s:.3f} "
           f"solve_s={['%.4f' % t for t in times]} s/iter={rec['s_per_iter'] * 1e3:.4f} ms bitwise={same} "
           f"peak={peak} ctor_peak={ctor_peak} launches={launches} ctor={ctor_launches}", flush=True)
@@ -1737,6 +1824,10 @@ def main() -> int:
     for entry in entries[:2]:  # the scale, pair and f64 multigrid paths' assembled levels run stencil_spmv
         key = "spmv_f32" if "float" in entry["name"] else "spmv_f64"
         entry["launches"] += sum(r["launches"][key] for r in class_runs + pair_runs + mg_runs)
+        if key == "spmv_f64":  # and every f64 V-cycle level, held against the plain version in phase 8
+            checks = [l for r in mg_runs for l in r["plain_checks"]["levels"]]
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [l["max_abs_err"] for l in checks])
+            entry["max_rel_err"] = max([entry["max_rel_err"]] + [l["rel_err"] for l in checks])
     for form, meta in PAIR_KERNELS.items():
         mine = [r for r in pkern if r["form"] == form]
         at = [r for r in mine if r["shape"] == "t1024"][0]

@@ -34,11 +34,14 @@ def pcg(
     apply_prec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     blowup_factor: float = 1e4,
     flexible: bool = False,
+    history: Optional[list] = None,
 ) -> CGResult:
     """Preconditioned CG. Pass either ``diag`` (Jacobi) or ``apply_prec``
     (any SPD preconditioner application). ``flexible=True`` switches beta
     to the Polak-Ribiere form ``z_{k+1}.(r_{k+1} - r_k) / z_k.r_k``, for a
-    preconditioner that varies between applications."""
+    preconditioner that varies between applications. A ``history`` list
+    receives ||r|| / ||b|| after every iteration (the norm the loop reads
+    anyway)."""
     if apply_prec is None:
         inv_diag = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag))
         apply_prec = lambda v: inv_diag * v  # noqa: E731
@@ -70,6 +73,8 @@ def pcg(
         p = z + beta * p
         rz = rz_new
         rn = float(torch.sqrt(torch.sum(r * r)))
+        if history is not None:
+            history.append(rn / b_norm if b_norm > 0 else rn)
         grow = grow + 1 if rn > rn_prev else 0
         rn_prev = rn
         it += 1

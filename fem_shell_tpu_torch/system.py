@@ -15,7 +15,7 @@ gradient needs d ke / d xyz, which no kernel computes.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,12 +27,13 @@ from fem_shell_tpu_torch.ops.assemble import (
     BlockEllMatrix,
     apply_dirichlet_to_ell,
     build_ell_pattern,
+    constrained_rhs,
     contributor_table,
     element_stiffnesses,
     scatter_to_ell,
 )
 from fem_shell_tpu_torch.ops.blockprec import cholesky6, cholesky6_solve
-from fem_shell_tpu_torch.solver import CGResult, dense_solve, pcg
+from fem_shell_tpu_torch.solver import dense_solve, pcg
 
 _ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
 
@@ -79,18 +80,15 @@ class ShellSystem:
         self.free_mask = torch.as_tensor(~mesh.dirichlet_mask(), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
-    def _assemble_impl(self, coords) -> BlockEllMatrix:
-        ke_tri, ke_quad = element_stiffnesses(coords, self.tri_conn, self.quad_conn,
+    def assemble(self) -> BlockEllMatrix:
+        """Assembled, BC-constrained block-ELL operator."""
+        ke_tri, ke_quad = element_stiffnesses(self.coords, self.tri_conn, self.quad_conn,
                                               self.dm, self.dp, self.thickness)
         n, k = self.pattern.adj.shape
         blocks = scatter_to_ell(ke_tri, ke_quad, n, k, self._contrib)
         del ke_tri, ke_quad
         blocks = apply_dirichlet_to_ell(blocks, self.adj, self.free_mask)
         return BlockEllMatrix(blocks, self.adj)
-
-    def assemble(self) -> BlockEllMatrix:
-        """Assembled, BC-constrained block-ELL operator."""
-        return self._assemble_impl(self.coords)
 
     def _preconditioner(self, a: BlockEllMatrix, precond: str):
         if precond == "block_jacobi":
@@ -106,23 +104,6 @@ class ShellSystem:
         raise ValueError(f"unknown precond {precond!r}: 'block_jacobi' or 'jacobi'")
 
     # ------------------------------------------------------------------
-    def _solve_pcg_impl(self, coords, forces, rtol, maxiter, precond="block_jacobi",
-                        differentiable=False) -> Tuple[torch.Tensor, CGResult]:
-        if differentiable:
-            raise NotImplementedError(
-                "the differentiable solve (coordinate gradients need d ke / d xyz, which no "
-                f"kernel computes) is {_ROADMAP}")
-        a = self._assemble_impl(coords)
-        b = forces * self.free_mask
-        res = pcg(a.matvec, b, rtol=rtol, maxiter=maxiter, apply_prec=self._preconditioner(a, precond))
-        return res.x, res
-
-    def _solve_dense_impl(self, coords, forces) -> torch.Tensor:
-        a = self._assemble_impl(coords)
-        dense = a.to_dense()
-        b = (forces * self.free_mask).reshape(-1)
-        return dense_solve(dense, b).reshape(self.mesh.n_nodes, 6)
-
     def solve(
         self,
         forces,
@@ -130,18 +111,24 @@ class ShellSystem:
         rtol: float = 1e-12,
         maxiter: int = 20000,
         precond: str = "block_jacobi",
+        differentiable: bool = False,
     ) -> torch.Tensor:
         """Solve K u = f. ``forces``: [N, 6] nodal loads (numpy or tensor).
         Returns the f64 displacements [N, 6] on the system's device; a
         ``pcg`` solve sets ``last_cg`` (``CGResult``)."""
-        forces = torch.as_tensor(forces, dtype=self.dtype).to(self.device)
-        if method == "dense":
-            return self._solve_dense_impl(self.coords, forces)
-        if method != "pcg":
+        if differentiable:
+            raise NotImplementedError(
+                "the differentiable solve (coordinate gradients need d ke / d xyz, which no "
+                f"kernel computes) is {_ROADMAP}")
+        if method not in ("pcg", "dense"):
             raise ValueError(f"unknown method {method!r}: 'pcg' or 'dense'")
-        x, res = self._solve_pcg_impl(self.coords, forces, rtol, maxiter, precond)
+        b = constrained_rhs(torch.as_tensor(forces, dtype=self.dtype).to(self.device), self.free_mask)
+        a = self.assemble()
+        if method == "dense":
+            return dense_solve(a.to_dense(), b.reshape(-1)).reshape(self.mesh.n_nodes, 6)
+        res = pcg(a.matvec, b, rtol=rtol, maxiter=maxiter, apply_prec=self._preconditioner(a, precond))
         self.last_cg = res
-        return x
+        return res.x
 
     # ------------------------------------------------------------------
     def make_repeat_solver(self, rtol: float = 1e-10, maxiter: int = 20000,
@@ -154,7 +141,7 @@ class ShellSystem:
         apply_prec = self._preconditioner(a, precond)
 
         def solve(forces):
-            b = torch.as_tensor(forces, dtype=self.dtype).to(self.device) * self.free_mask
+            b = constrained_rhs(torch.as_tensor(forces, dtype=self.dtype).to(self.device), self.free_mask)
             res = pcg(a.matvec, b, rtol=rtol, maxiter=maxiter, apply_prec=apply_prec)
             return res.x, res.iters, res.residual
 

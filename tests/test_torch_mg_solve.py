@@ -7,13 +7,14 @@ on the CPU at 16x16 quad and tri (two levels, coarse_max=4).
   one of the JAX count and the displacements to 1e-10 of max|u|; the
   per-level damping and the coarsest inverse as JAX builds them.
 - ``solve_df`` on the f64 levels (f64 CG, V-cycle on f32 copies):
-  iterations within one of the JAX ``solve_df``'s, pinned in
-  JAX_DF_ITERS; the displacements to 1e-10 of the port's f64 ``solve``
-  (itself held to the JAX one at 1e-10). The JAX df CG on the CPU floors
-  at 1.4e-5 / 3.8e-5 of max|u| from its own f64 solve at 16x16 quad /
-  tri, whatever its rtol (tools/torch_pcg_floor_probe.py --solve-df) (its jitted two-float32 error-free transforms are
-  FMA-contracted on the CPU, ROADMAP.md Queue 3), so its displacements are
-  no yardstick; the port's native f64 sits 1e-12 from the JAX f64 solve.
+  iterations within one of the JAX ``solve_df``'s on the same inputs;
+  the displacements to 1e-10 of the JAX f64 ``solve``, and to 1e-4 of
+  the JAX ``solve_df``. The JAX df CG on the CPU floors at 1.4e-5 /
+  3.8e-5 of max|u| from its own f64 solve at 16x16 quad / tri, whatever
+  its rtol (tools/torch_pcg_floor_probe.py --solve-df; its jitted
+  two-float32 error-free transforms are FMA-contracted on the CPU,
+  ROADMAP.md Queue 3), so 1e-4 is the closest it can be held; the port's
+  native f64 sits 1e-12 from the JAX f64 solve.
 - ``omega=`` fixes the Jacobi damping as the JAX override does.
 - ``reassemble()`` rebuilds the same levels: the next solve repeats the
   first bit for bit.
@@ -36,17 +37,6 @@ from fem_shell_tpu_torch.convert import material_from_jax, mesh_from_jax
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 TMAT = material_from_jax(JMAT)
 N, COARSE_MAX, OMEGA = 16, 4, 0.5
-# CG iterations of the JAX package's MultigridShellSystem(mesh, mat,
-# coarse_max=4).solve_df(forces, rtol=1e-9) on the CPU with x64 at 16x16,
-# produced with
-#   JAX_PLATFORMS=cpu python -c "import jax; jax.config.update('jax_enable_x64', True)
-#     from fem_shell_tpu import mg as M; from fem_shell_tpu.materials import Material
-#     from fem_shell_tpu.meshgen import MeshGenParams as P, generate as g
-#     for et in 'qt':
-#       m, r, f = g(P(et, 16, 16, 0, 0, 10, 10, (0,0,0,0), 300.0, 2, et == 'q', 'z'))
-#       s = M.MultigridShellSystem(m, Material(0.3, 1e7, 0.5), coarse_max=4)
-#       s.solve_df(r * f, rtol=1e-9); print(et, s.last_iters)"
-JAX_DF_ITERS = {"q": 13, "t": 29}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,11 +54,14 @@ def _plate(et, n=N):
 
 @functools.lru_cache(maxsize=None)
 def _jax_default(et):
-    """The JAX f64 hierarchy and its solve, once per test process."""
+    """The JAX f64 hierarchy, its solve and its solve_df, once per test
+    process."""
     jmesh, _, forces = _plate(et)
     jsys = jmg.MultigridShellSystem(jmesh, JMAT, coarse_max=COARSE_MAX)
     u = np.asarray(jsys.solve(forces, rtol=1e-10))
+    u_df = np.asarray(jsys.solve_df(forces, rtol=1e-9))
     return {"u": u, "iters": int(jsys.last_cg.iters), "levels": jsys.n_levels,
+            "u_df": u_df, "df_iters": int(jsys.last_iters),
             "omega": [float(l.omega) for l in jsys.levels[:-1]],
             "dense_inv": np.asarray(jsys.levels[-1].dense_inv)}
 
@@ -107,12 +100,14 @@ def test_solve_matches_jax(et):
 
 @pytest.mark.parametrize("et", ["q", "t"])
 def test_solve_df_on_f64_levels_matches_jax(et):
+    ref = _jax_default(et)
     tsys, forces = _port(et)
     u = tsys.solve_df(forces, rtol=1e-9)
-    assert abs(tsys.last_iters - JAX_DF_ITERS[et]) <= 1 and tsys.last_residual < 1e-9
+    assert abs(tsys.last_iters - ref["df_iters"]) <= 1 and tsys.last_residual < 1e-9
     l32 = tsys._levels32
     assert l32[0].values.dtype == torch.float32 and l32[-1].dense_inv.dtype == torch.float64
-    assert _close(u.numpy(), tsys.solve(forces, rtol=1e-10).numpy(), 1e-10)
+    assert _close(u.numpy(), ref["u"], 1e-10)
+    assert _close(u.numpy(), ref["u_df"], 1e-4)
     x = tsys.solve_df(tsys.stage_forces(forces), rtol=1e-9, return_device=True)
     assert tuple(x.shape) == (6, tsys.levels[0].npad) and tsys._levels32 is l32
 

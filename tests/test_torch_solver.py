@@ -69,3 +69,17 @@ def test_pcg_survives_first_iteration_spike():
               apply_prec=lambda r: mt @ r)
     assert res.residual < 1e-9
     assert res.iters < 20
+
+
+def test_pcg_history_records_every_iteration():
+    """``history`` holds ||r|| / ||b|| after each iteration: one entry per
+    iteration, the last the returned residual, and the run unchanged."""
+    a, b = _spd()
+    d = torch.from_numpy(np.diagonal(a).copy())
+    mv = lambda v: torch.from_numpy(a) @ v  # noqa: E731
+    hist = []
+    got = pcg(mv, torch.from_numpy(b), diag=d, rtol=1e-10, maxiter=1000, history=hist)
+    plain = pcg(mv, torch.from_numpy(b), diag=d, rtol=1e-10, maxiter=1000)
+    assert len(hist) == got.iters == plain.iters and hist[-1] == got.residual
+    assert torch.equal(got.x, plain.x)
+    assert all(h > 1e-10 for h in hist[:-1])

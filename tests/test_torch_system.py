@@ -315,9 +315,8 @@ def test_unported_paths_raise():
     mesh, mat = tsys.mesh, tsys.material
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ShellSystem(mesh, mat, dtype=torch.float32, device="cpu")
-    f = torch.as_tensor(forces)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys._solve_pcg_impl(tsys.coords, f, 1e-12, 100, "block_jacobi", differentiable=True)
+        tsys.solve(forces, differentiable=True)
     with pytest.raises(ValueError, match="precond"):
         tsys.solve(forces, precond="mg")
     bad = torch.eye(6, dtype=torch.float64).repeat(3, 1, 1)
