@@ -150,6 +150,32 @@ before the last line:
    fem_shell_tpu_torch.utils.cli in subprocesses on the card (the default
    route and --precond mg): exit 0 and the .vtu displacements equal to the
    library solve of the same files.
+9. Curved shells, the Scordelis-Lo roof (fem_shell_tpu_torch/shells.py).
+   ShellSystem at n = 8, 16, 32: midside w within 1e-4 of the goldens of
+   tests/test_shells.py, one elem_stiffness<4> launch per assembly. The
+   512x512 roof (1,579,014 DOF, 6 levels) through
+   MultigridShellSystem(dtype=float32, df_operator=True, df_cycle=True,
+   smoother="chebyshev"): constructor, solve_df(rtol=1e-9) three times
+   (the third after reassemble()), every level f64 and every level below
+   the fine one a Galerkin RAP (9 offsets); gates: rtol reached, the true
+   residual through stencil_spmv<double> as a backward error ||b - A x|| /
+   || |A| |x| || at most ROOF_BACKWARD_ERR (and ||b - A x|| / ||b||
+   recorded), midside w within 1e-6 of ROOF_W512, at most
+   ROOF_MAX_ITERS iterations, three solves bitwise equal, one
+   stencil_spmv_sym<double> per CG iteration and seven stencil_spmv<double>
+   per smoothing level and V-cycle, elem_stiffness<4> for level 0 only (in
+   the constructor and in reassemble), no stencil_spmv<float>; then
+   reassemble(profile=True) for the stage split, a profiled solve of
+   ROOF_PROFILE_ITERS iterations, and each level's stencil_spmv<double> and
+   one V-cycle against the plain version. At 256x256 on f64 levels
+   (Chebyshev): cycle V, K and K with k_depth=1 reach rtol 1e-9, K in fewer
+   iterations than V, their midside w within 1e-6 relative; W recorded
+   (gated finite). solve_fused with coarse_op="galerkin" on the 64x64
+   Test-G plates: goldens within 1e-4, iterations within one of
+   JAX_GALERKIN_ITERS, elem_stiffness for level 0 only. The pair path
+   (df_operator=True, no df_cycle) with Galerkin levels on the 64x64 and
+   128x128 roofs, solve_df(rtol=1e-6): iterations within 5 % and midside w
+   within 1e-4 of the port's own CPU run (ROOF_PAIR_CPU).
 
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
@@ -281,6 +307,38 @@ JAX_SCALE_FLOOR = 9.7e-4
 # and pair paths, the same in every card run since the class path came to
 # the card (PERF.md)
 SCALE_INNER_ITERS = 58
+# the Scordelis-Lo roof (fem_shell_tpu_torch/shells.py): ShellSystem's
+# midside deflections pinned by tests/test_shells.py:20 (gate 1e-4)
+ROOF_PINNED = {8: -0.28523, 16: -0.29379, 32: -0.29844}
+# the 512^2 roof's midside deflection: the JAX package's df cycle to rtol
+# 1e-9 in 871 iterations, which iterative refinement against a host f64
+# operator moved by < 1e-7 (ROOF_DFCYCLE.json); gated at 1e-6 absolute,
+# the iterations at 960
+ROOF_W512 = -0.2966950
+ROOF_MAX_ITERS = 960
+# the true residual is gated as a normwise backward error ||b - A x|| /
+# || |A| |x| || (f64 evaluation): at 512^2 || |A| |x| || is 1.56e9 ||b||,
+# so an f64 x carries a true residual of ~eps * 1.56e9 ~ 1e-7 ||b|| by its
+# rounding alone (two compensated refinement passes stop at 3.35e-8 ||b||,
+# tools/torch_roof_residual_floor.py); a backward-stable f64 solve sits at
+# a few eps (the port: 4.6e-16), where np.linalg.inv's amplified null
+# vector on the coarsest level (ROADMAP.md "Differences") gave 4.5e-15
+ROOF_BACKWARD_ERR = 2e-15
+ROOF_PROFILE_ITERS = 50  # iterations of the profiled 512^2 roof solve
+# CG iterations of the JAX package's MultigridShellSystem(mesh, mat,
+# dtype=float64, assemble=False, coarse_op="galerkin").solve_fused(forces,
+# rtol=1e-9, maxiter=400, arith="f64") on the CPU for the 64x64 Test-G
+# plates (the JAX_F64_ITERS command with coarse_op="galerkin")
+JAX_GALERKIN_ITERS = {"q": 43, "t": 69}
+# (CG iterations, midside w) of the port's pair path with Galerkin levels
+# on the CPU (the f32 V-cycle sums in another order on the card):
+#   python -c "import torch; from fem_shell_tpu_torch import MultigridShellSystem as M
+#     from fem_shell_tpu_torch.shells import SCORDELIS_LO_MATERIAL as mat, scordelis_lo
+#     for n in (64, 128):
+#       mesh, f, mid = scordelis_lo(n); s = M(mesh, mat, dtype=torch.float32, df_operator=True,
+#         smoother='chebyshev', device='cpu'); u = s.solve_df(f, rtol=1e-6, maxiter=2000)
+#       print(n, s.last_iters, repr(float(u[mid, 2])))"
+ROOF_PAIR_CPU = {64: (54, -0.29977165876861), 128: (76, -0.30011196323392236)}
 
 
 class Gates:
@@ -1046,6 +1104,14 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
     return rec
 
 
+def rebuild_split(mg, tag):
+    """One more reassemble(profile=True): its stage split (each stage ended
+    by a device synchronize), printed and returned as {stage: seconds}."""
+    print(f"  {tag} reassemble(profile=True):", flush=True)
+    mg.reassemble(profile=True)
+    return {name.strip(): secs for name, secs in mg.rebuild_profile}
+
+
 def reset_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
     from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness
@@ -1077,13 +1143,15 @@ def read_launches():
 def elem_launch_count(mg):
     """elem_stiffness launches of one assembly of mg's levels: every
     materialized level is assembled by the grid pipeline, one launch per
-    strip and element family."""
+    strip and element family; a Galerkin level (stencil_rap of the level
+    above) launches none."""
     from fem_shell_tpu_torch.ops.assemble_grid import family_corners, strip_bounds
 
     fams = len(family_corners(mg.grid.elem_type, mg.grid.ul_lr))
     first = 1 if mg._cdf is not None else 0  # the class level is not assembled
+    last = 1 if mg.coarse_op == "galerkin" else mg.n_levels  # Galerkin levels are RAPs
     return sum(len(strip_bounds(lvl.nyp - 1, max(1, mg._df_strip_nodes // lvl.nxp))) * fams
-               for lvl in mg.levels[first:])
+               for lvl in mg.levels[first:last])
 
 
 def class_launch_counts(mg):
@@ -1206,6 +1274,7 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
     gates.check(launches[key_elem] == want_elem > 0,
                 f"{tag}: elem_stiffness launches {launches[key_elem]} == {want_elem} "
                 f"({'the steady reassemble' if steady else 'the constructor'}'s grid assembly)")
+    rebuild = rebuild_split(mg, tag) if steady else None
     prof = device_profile(lambda: mg.solve_df_refined(f_dev, rtol=1e-9, return_device=True)) \
         if steady else None
     rec = {
@@ -1213,7 +1282,7 @@ def class_solve_phase(gates, et, n, device="cuda", golden=KIRCHHOFF, gate_rel=1e
         "inner_per_solve": list(mg.refine_inner_iters), "refine_history": hist,
         "true_residual": hist[-1], "center_w": w, "rel_err": err, **times,
         "launches": launches, "launches_before_steady_spmv_f64": spmv64_before,
-        "expected": expected, "peak_mem_bytes": peak, "profile": prof,
+        "expected": expected, "peak_mem_bytes": peak, "profile": prof, "rebuild_profile": rebuild,
     }
     print(f"  {tag}: levels={mg.n_levels} inner_iters={mg.last_iters} {mg.refine_inner_iters} "
           f"history={['%.3e' % h for h in hist]} w={w:.7f} rel_err={err:.2e} "
@@ -1637,6 +1706,298 @@ def mg_solve_phase(gates, et, n, device="cuda", reps=2, jax=None, golden=None, g
     return rec
 
 
+def roof_golden_phase(gates, device="cuda"):
+    """The Scordelis-Lo roof through ShellSystem (block-ELL, block-Jacobi
+    PCG to rtol 1e-12) at n = 8, 16, 32: curved 3-D Quad-4 elements through
+    elem_stiffness<4>, the midside deflection within 1e-4 of the pinned
+    goldens, one elem_stiffness<4> launch per assembly."""
+    from fem_shell_tpu_torch import ShellSystem
+    from fem_shell_tpu_torch.shells import SCORDELIS_LO_MATERIAL, scordelis_lo
+
+    rows = []
+    for n, want in ROOF_PINNED.items():
+        mesh, forces, mid = scordelis_lo(n)
+        system = ShellSystem(mesh, SCORDELIS_LO_MATERIAL, device=device)
+        reset_launches()
+        t0 = time.perf_counter()
+        u = system.solve(forces, rtol=1e-12, maxiter=100000)
+        w = float(u[mid, 2])
+        secs = time.perf_counter() - t0
+        got = read_launches()
+        err = abs(w - want) / abs(want)
+        it, res = system.last_cg.iters, system.last_cg.residual
+        gates.check(err <= 1e-4 and res < 1e-12 and bool(torch.isfinite(u).all()),
+                    f"roof golden n={n}: ShellSystem midside w {w:.7f} vs {want}: {err:.2e} <= 1e-4, "
+                    f"residual {res:.2e} < 1e-12 in {it} iterations")
+        gates.check(got["elem4"] == 1 and got["elem3"] == 0,
+                    f"roof golden n={n}: elem_stiffness<4> launches {got['elem4']} == 1, <3> {got['elem3']} == 0")
+        rows.append({"case": f"roof{n}", "w": w, "rel_err": err, "iters": it, "residual": res,
+                     "seconds": secs, "launches": got})
+        print(f"  roof{n} ShellSystem: w={w:.10f} rel_err={err:.2e} iters={it} {secs:.3f} s", flush=True)
+    return rows
+
+
+def true_residual(mg, x, b):
+    """(||b - A x|| / ||b||, ||b - A x|| / || |A| |x| ||) on the f64 fine
+    operator through stencil_spmv<double>: the relative true residual and
+    the normwise backward error."""
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+
+    offs = mg.levels[0].offsets
+    rn = float(torch.linalg.vector_norm(b - stencil_spmv(mg._fine64, x, offs)))
+    scale = float(torch.linalg.vector_norm(stencil_spmv(mg._fine64.abs(), x.abs(), offs)))
+    return rn / float(torch.linalg.vector_norm(b)), rn / scale
+
+
+def roof_scale_phase(gates, n=512, device="cuda"):
+    """The roof at full width through the df cycle (tools/roof_dfcycle_probe.py's
+    configuration): MultigridShellSystem(dtype=float32, df_operator=True,
+    df_cycle=True, smoother="chebyshev") and solve_df(rtol=1e-9,
+    maxiter=2000): constructor, solve (the main path: launches counted), solve
+    again, reassemble(), solve a third time; then reassemble(profile=True)
+    for the stage split, a profiled solve and the V-cycle against its plain
+    version on this hierarchy."""
+    from fem_shell_tpu_torch import MultigridShellSystem
+    from fem_shell_tpu_torch.shells import SCORDELIS_LO_MATERIAL, scordelis_lo
+
+    mesh, forces, mid = scordelis_lo(n)
+    tag = f"roof{n} df_cycle"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = t_main = time.perf_counter()
+    mg = MultigridShellSystem(mesh, SCORDELIS_LO_MATERIAL, dtype=torch.float32, df_operator=True,
+                              df_cycle=True, smoother="chebyshev", device=device)
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    ctor_launches = read_launches()
+    ctor_peak = torch.cuda.max_memory_allocated()
+    f_dev = mg.stage_forces(forces)
+    b = f_dev * mg.levels[0].free_t
+    torch.cuda.reset_peak_memory_stats()
+    xs, times, iters, resids = [], [], [], []
+    launches = reassemble_launches = None
+    for k in range(3):
+        if k == 2:
+            reset_launches()
+            t0 = time.perf_counter()
+            mg.reassemble()
+            torch.cuda.synchronize()
+            reassemble_s = time.perf_counter() - t0
+            reassemble_launches = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        x = mg.solve_df(f_dev, rtol=1e-9, maxiter=2000, return_device=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if k == 0:
+            launches = read_launches()
+        xs.append(x)
+        iters.append(mg.last_iters)
+        resids.append(mg.last_residual)
+    peak = torch.cuda.max_memory_allocated()
+    x = xs[0]
+    it = iters[0]
+    w = float(x[2, mid])
+    true_res, backward = true_residual(mg, x, b)
+    same = all(torch.equal(xi, x) for xi in xs[1:])
+    nl = mg.n_levels
+    smoothing = nl - 1
+    want64 = 7 * smoothing * (it + 1)
+    want_elem = elem_launch_count(mg)
+    cg_key = "sym" if mg._fine_sym is not None else "spmv_f64"
+    gates.check(mg.coarse_op == "galerkin" and mg.cycle == "V" and nl == 6
+                and all(len(l.offsets) == 9 and l.values.dtype == torch.float64 for l in mg.levels),
+                f"{tag}: {nl} f64 levels, coarse_op {mg.coarse_op}, cycle {mg.cycle}, 9 offsets "
+                f"(level 0 assembled, 1-{nl - 1} stencil_rap)")
+    gates.check(all(r <= 1e-9 for r in resids) and backward <= ROOF_BACKWARD_ERR and bool(torch.isfinite(x).all()),
+                f"{tag}: residuals {['%.2e' % r for r in resids]} <= 1e-9; true residual {true_res:.3e}, "
+                f"backward error ||b-Ax||/|||A||x||| {backward:.3e} <= {ROOF_BACKWARD_ERR:.0e}")
+    gates.check(abs(w - ROOF_W512) <= 1e-6, f"{tag}: midside w {w:.8f} vs {ROOF_W512} (+-1e-6)")
+    gates.check(it <= ROOF_MAX_ITERS, f"{tag}: {it} iterations <= {ROOF_MAX_ITERS}")
+    gates.check(same and iters.count(it) == 3, f"{tag}: three solves (the third after reassemble) bitwise equal")
+    gates.check(cg_key == "sym" and launches["sym"] == it and launches["spmv_f64"] == want64
+                and launches["spmv_f32"] == 0 and launches["elem4"] == 0,
+                f"{tag}: stencil_spmv_sym<double> {launches['sym']} == {it} CG iterations, "
+                f"stencil_spmv<double> {launches['spmv_f64']} == {want64} (7 x {smoothing} levels x "
+                f"{it + 1} V-cycles), <float> {launches['spmv_f32']} == 0, elem_stiffness {launches['elem4']} == 0")
+    gates.check(ctor_launches["elem4"] == want_elem == reassemble_launches["elem4"] and want_elem > 0
+                and ctor_launches["elem3"] == 0 and ctor_launches["spmv_f32"] == 0,
+                f"{tag}: elem_stiffness<4> launches {ctor_launches['elem4']} (constructor) and "
+                f"{reassemble_launches['elem4']} (reassemble) == {want_elem}: level 0 only, no "
+                f"stencil_spmv<float>")
+    mean_uy = float(x[1, :mesh.n_nodes].mean())
+    steps = {"main_s": time.perf_counter() - t_main}
+    t0 = time.perf_counter()
+    split = rebuild_split(mg, tag)
+    steps["split_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the first ROOF_PROFILE_ITERS iterations: a trace of all of them
+    # takes minutes to summarize, and every iteration does the same work
+    prof = device_profile(lambda: mg.solve_df(f_dev, rtol=1e-9, maxiter=ROOF_PROFILE_ITERS,
+                                              return_device=True))
+    steps["profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks = vcycle_plain_checks(gates, mg, tag, device)
+    steps["plain_checks_s"] = time.perf_counter() - t0
+    rec = {"case": tag, "nodes": mesh.n_nodes, "dof": 6 * mesh.n_nodes, "elements": len(mesh.quad),
+           "levels": nl, "level_offsets": [len(l.offsets) for l in mg.levels], "iters": iters,
+           "residuals": resids, "true_residual": true_res, "backward_error": backward, "center_w": w, "ctor_s": ctor_s,
+           "solve_s": times, "s_per_iter": times[0] / max(it, 1), "reassemble_s": reassemble_s,
+           "bitwise_repeat": same, "ctor_launches": ctor_launches, "launches": launches,
+           "reassemble_launches": reassemble_launches, "expected_spmv_f64": want64,
+           "expected_elem": want_elem, "ctor_peak_bytes": ctor_peak, "peak_mem_bytes": peak,
+           "fine64_bytes": mg._fine64.numel() * 8, "fine_sym_bytes": mg._fine_sym.numel() * 8,
+           "rebuild_profile": split, "profile": prof, "profile_iters": ROOF_PROFILE_ITERS,
+           "plain_checks": checks, "mean_uy": mean_uy, "steps": steps}
+    rec["launches_total"] = {k: ctor_launches[k] + launches[k] + reassemble_launches[k] for k in launches}
+    print(f"  {tag}: levels={nl} iters={iters} residuals={resids} true_res={true_res:.3e} "
+          f"backward={backward:.3e} w={w:.10f} "
+          f"ctor_s={ctor_s:.3f} solve_s={['%.4f' % t for t in times]} s/iter={rec['s_per_iter'] * 1e3:.4f} ms "
+          f"reassemble_s={reassemble_s:.3f} bitwise={same} peak={peak} ctor_peak={ctor_peak} "
+          f"mean_uy={mean_uy:.3e} launches={launches} ctor={ctor_launches} steps={steps}", flush=True)
+    print(f"  {tag} profile ({ROOF_PROFILE_ITERS} iterations): wall_ms={prof['wall_ms']:.1f} "
+          f"device_busy_ms={prof['device_busy_ms']:.1f} idle_share={prof['idle_share']} "
+          f"stencil_spmv_ms={prof['stencil_spmv_ms']:.1f} stencil_spmv_sym_ms={prof['stencil_spmv_sym_ms']:.1f}",
+          flush=True)
+    for row in prof["top"]:
+        print(f"    {row['ms']:9.3f} ms {row['count']:6d}x {row['kernel']}", flush=True)
+    del mg, xs, x, b, f_dev
+    torch.cuda.empty_cache()
+    return rec
+
+
+def roof_cycle_phase(gates, n=256, device="cuda"):
+    """V, K, K with k_depth=1 and W cycles on the f64 roof hierarchy
+    (tools/roof_kcycle_probe.py's configuration: dtype float64, Chebyshev):
+    solve(rtol=1e-9, maxiter=1500). V and both K reach rtol, K takes fewer
+    iterations than V, and their midside deflections agree within 1e-6
+    relative; W's count and residual are recorded (gated finite)."""
+    from fem_shell_tpu_torch import MultigridShellSystem
+    from fem_shell_tpu_torch.shells import SCORDELIS_LO_MATERIAL, scordelis_lo
+
+    mesh, forces, mid = scordelis_lo(n)
+    rows = []
+    for cyc, kd in (("V", None), ("K", None), ("K", 1), ("W", None)):
+        tag = f"roof{n} cycle={cyc}" + ("" if kd is None else f" k_depth={kd}")
+        reset_launches()
+        mg = MultigridShellSystem(mesh, SCORDELIS_LO_MATERIAL, dtype=torch.float64, smoother="chebyshev",
+                                  cycle=cyc, k_depth=kd, device=device)
+        ctor = read_launches()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        u = mg.solve(forces, rtol=1e-9, maxiter=1500)
+        w = float(u[mid, 2])
+        secs = time.perf_counter() - t0
+        got = read_launches()
+        it, res = mg.last_cg.iters, mg.last_cg.residual
+        rows.append({"case": tag, "cycle": cyc, "k_depth": kd, "levels": mg.n_levels, "iters": it,
+                     "residual": res, "center_w": w, "solve_s": secs, "s_per_iter": secs / max(it, 1),
+                     "launches": got, "launches_total": {k: ctor[k] + got[k] for k in got}})
+        finite = bool(torch.isfinite(u).all()) and np.isfinite(res)
+        if cyc == "W":
+            gates.check(finite, f"{tag}: finite displacements and residual {res:.3e} ({it} iterations; recorded)")
+        else:
+            gates.check(finite and res <= 1e-9, f"{tag}: residual {res:.2e} <= 1e-9 in {it} iterations")
+        gates.check(got["spmv_f64"] > 0 and got["spmv_f32"] == 0 and got["elem4"] == 0,
+                    f"{tag}: stencil_spmv<double> {got['spmv_f64']} > 0, <float> {got['spmv_f32']} == 0")
+        print(f"  {tag}: levels={mg.n_levels} iters={it} residual={res:.3e} w={w:.10f} {secs:.3f} s "
+              f"({secs / max(it, 1) * 1e3:.3f} ms/iter) launches={got}", flush=True)
+        del mg, u
+    by = {r["case"]: r for r in rows}
+    v, k, k1 = by[f"roof{n} cycle=V"], by[f"roof{n} cycle=K"], by[f"roof{n} cycle=K k_depth=1"]
+    gates.check(k["iters"] < v["iters"], f"roof{n}: K {k['iters']} iterations < V {v['iters']}")
+    spread = max(abs(r["center_w"] - v["center_w"]) for r in (k, k1)) / abs(v["center_w"])
+    gates.check(spread <= 1e-6, f"roof{n}: V, K and K(k_depth=1) midside w agree: {spread:.2e} <= 1e-6")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def galerkin_fused_phase(gates, device="cuda"):
+    """solve_fused with coarse_op="galerkin" on the 64x64 Test-G plates (the
+    tri plate's 7-offset fine level gives 9-offset RAP levels): goldens
+    within 1e-4, iterations within one of the JAX package's CPU counts,
+    elem_stiffness launched for level 0 only."""
+    from fem_shell_tpu_torch import Material, MultigridShellSystem
+
+    rows = []
+    for et in ("q", "t"):
+        mesh, frows, fac = plate(et, 64)
+        forces = frows * fac
+        tag = f"fused galerkin {et}64"
+        mg = MultigridShellSystem(mesh, Material(0.3, 1e7, 0.5), assemble=False, coarse_op="galerkin",
+                                  device=device)
+        mg.solve_fused(forces, rtol=1e-9, maxiter=400)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        u = mg.solve_fused(forces, rtol=1e-9, maxiter=400)
+        w = float(u[mesh.n_nodes // 2, 2])
+        secs = time.perf_counter() - t0
+        got = read_launches()
+        it, nl = mg.last_iters, mg.n_levels
+        err = abs(w - GOLDEN[et]) / GOLDEN[et]
+        want_elem = elem_launch_count(mg)
+        want32 = (nl - 1) * (21 + 7 * (it + 1))
+        key_elem = "elem3" if et == "t" else "elem4"
+        gates.check(err < 1e-4 and mg.last_residual < 1e-9,
+                    f"{tag}: centre w {w:.7f} vs {GOLDEN[et]}: {err:.2e} < 1e-4, residual {mg.last_residual:.2e}")
+        gates.check(abs(it - JAX_GALERKIN_ITERS[et]) <= 1,
+                    f"{tag}: {it} iterations vs JAX {JAX_GALERKIN_ITERS[et]} (+-1)")
+        gates.check(all(len(l.offsets) == 9 for l in mg.levels[1:]),
+                    f"{tag}: RAP levels have 9 offsets (fine level {len(mg.levels[0].offsets)})")
+        gates.check(got[key_elem] == want_elem > 0 and got["spmv_f32"] >= want32 and got["spmv_f64"] >= it,
+                    f"{tag}: elem_stiffness {got[key_elem]} == {want_elem} (level 0 only), stencil_spmv "
+                    f"<float> {got['spmv_f32']} >= {want32}, <double> {got['spmv_f64']} >= {it}")
+        rows.append({"case": tag, "levels": nl, "iters": it, "residual": mg.last_residual, "center_w": w,
+                     "rel_err": err, "solve_s": secs, "launches": got, "launches_total": got})
+        print(f"  {tag}: levels={nl} iters={it} w={w:.10f} rel_err={err:.2e} {secs:.4f} s launches={got}",
+              flush=True)
+    return rows
+
+
+def roof_pair_phase(gates, n, want, device="cuda"):
+    """The pair path with Galerkin levels (df_operator=True, no df_cycle:
+    the f64 CG over the assembled fine operator, the f32 V-cycle on f32
+    casts of the f64 RAP chain), solve_df(rtol=1e-6) on the roof. ``want``
+    = (iterations, midside w) of the port's own CPU run at this size:
+    the count within 5 % (another f32 summation order), w within 1e-4
+    relative."""
+    from fem_shell_tpu_torch import MultigridShellSystem
+    from fem_shell_tpu_torch.shells import SCORDELIS_LO_MATERIAL, scordelis_lo
+
+    mesh, forces, mid = scordelis_lo(n)
+    tag = f"roof{n} pair path"
+    reset_launches()
+    mg = MultigridShellSystem(mesh, SCORDELIS_LO_MATERIAL, dtype=torch.float32, df_operator=True,
+                              smoother="chebyshev", device=device)
+    ctor = read_launches()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    u = mg.solve_df(forces, rtol=1e-6, maxiter=2000)
+    w = float(u[mid, 2])
+    secs = time.perf_counter() - t0
+    got = read_launches()
+    it, res = mg.last_iters, mg.last_residual
+    gates.check(mg._cdf is None and all(l.values.dtype == torch.float32 for l in mg.levels)
+                and all(len(l.offsets) == 9 for l in mg.levels[1:]),
+                f"{tag}: no class operator, f32 levels, 9-offset RAP levels")
+    gates.check(res <= 1e-6 and bool(torch.isfinite(u).all()), f"{tag}: residual {res:.2e} <= 1e-6 in {it} iterations")
+    want_it, want_w = want
+    gates.check(abs(it - want_it) <= max(1, 0.05 * want_it) and abs(w - want_w) <= 1e-4 * abs(want_w),
+                f"{tag}: {it} iterations vs the port's CPU {want_it} (5 %), w {w:.8f} vs {want_w:.8f} (1e-4)")
+    gates.check(got["spmv_f32"] > 0 and got["spmv_f64"] + got["sym"] >= it,
+                f"{tag}: stencil_spmv<float> {got['spmv_f32']} > 0, CG matvecs {got['spmv_f64'] + got['sym']} >= {it}")
+    nl = mg.n_levels
+    print(f"  {tag}: levels={nl} iters={it} residual={res:.2e} w={w:.10f} {secs:.3f} s launches={got}",
+          flush=True)
+    del mg
+    return {"case": tag, "levels": nl, "iters": it, "residual": res, "center_w": w, "solve_s": secs,
+            "launches": got, "launches_total": {k: ctor[k] + got[k] for k in got}}
+
+
 def cli_phase(gates, device="cuda"):
     """The port's meshgen and solver CLIs in subprocesses on the card:
     exit 0, and the .vtu displacements equal to the library solve of the
@@ -1785,6 +2146,15 @@ def main() -> int:
     mg_runs.append(mg_solve_phase(gates, "t", 1024, golden=KIRCHHOFF, gate_rel=1e-3))
     clis = cli_phase(gates)
 
+    print("phase 9: curved shells (the Scordelis-Lo roof; Galerkin levels, the f64 df cycle, W/K cycles)",
+          flush=True)
+    roof_goldens = roof_golden_phase(gates)
+    roof = roof_scale_phase(gates, 512)
+    cycles = roof_cycle_phase(gates, 256)
+    fused_gal = galerkin_fused_phase(gates)
+    roof_pairs = [roof_pair_phase(gates, n, want) for n, want in ROOF_PAIR_CPU.items()]
+    roof_runs = [roof] + cycles + fused_gal + roof_pairs
+
     entries = []
     for dtype, meta in KERNELS.items():
         mine = [r for r in kern if r["dtype"] == str(dtype)[6:]]
@@ -1821,11 +2191,12 @@ def main() -> int:
                       if ("IfLi" if dtype == torch.float32 else "IdLi") in k},
         })
         gates.check(entries[-1]["launches"] > 0, f"{meta['name']} launched on the main path")
-    for entry in entries[:2]:  # the scale, pair and f64 multigrid paths' assembled levels run stencil_spmv
+    for entry in entries[:2]:  # the scale, pair, f64 multigrid and roof paths' levels run stencil_spmv
         key = "spmv_f32" if "float" in entry["name"] else "spmv_f64"
         entry["launches"] += sum(r["launches"][key] for r in class_runs + pair_runs + mg_runs)
-        if key == "spmv_f64":  # and every f64 V-cycle level, held against the plain version in phase 8
-            checks = [l for r in mg_runs for l in r["plain_checks"]["levels"]]
+        entry["launches"] += sum(r["launches_total"][key] for r in roof_runs)
+        if key == "spmv_f64":  # and every f64 V-cycle level, held against the plain version in phases 8-9
+            checks = [l for r in mg_runs + [roof] for l in r["plain_checks"]["levels"]]
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [l["max_abs_err"] for l in checks])
             entry["max_rel_err"] = max([entry["max_rel_err"]] + [l["rel_err"] for l in checks])
     for form, meta in PAIR_KERNELS.items():
@@ -1833,7 +2204,8 @@ def main() -> int:
         at = [r for r in mine if r["shape"] == "t1024"][0]
         entries.append({
             "name": meta["name"], "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": sum(r["launches"][meta["count"]] for r in pair_runs),
+            "launches": (sum(r["launches"][meta["count"]] for r in pair_runs)
+                         + sum(r["launches_total"][meta["count"]] for r in roof_runs)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["rel_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -1851,7 +2223,9 @@ def main() -> int:
         entries.append({
             "name": meta["name"], "route": "cuda", "source": ELEM_SOURCE, "replaces": meta["replaces"],
             "launches": (sum(r["launches"][key] for r in runs + class_runs + pair_runs + grids + systems)
-                         + sum(r["ctor_launches"][key] for r in mg_runs) + golden_launches[key]),
+                         + sum(r["ctor_launches"][key] for r in mg_runs) + golden_launches[key]
+                         + sum(r["launches"][key] for r in roof_goldens)
+                         + sum(r["launches_total"][key] for r in roof_runs)),
             "max_abs_err": max(r["max_abs_err"] for r in mine + cases),
             "max_rel_err": max(r["rel_err"] for r in mine + cases),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -1870,7 +2244,8 @@ def main() -> int:
          "kernels": kern, "class_kernels": ckern, "pair_kernels": pkern, "elem_kernels": ekern,
          "solves": runs, "class_solves": class_runs, "pair_solves": pair_runs, "grid": grids,
          "elem_cases": ecases, "goldens": goldens, "systems": systems, "ell_matvec_scale": ell_scale,
-         "mg_solves": mg_runs, "cli": clis},
+         "mg_solves": mg_runs, "cli": clis, "roof_goldens": roof_goldens, "roof": roof,
+         "roof_cycles": cycles, "galerkin_fused": fused_gal, "roof_pairs": roof_pairs},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

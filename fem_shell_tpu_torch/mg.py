@@ -12,7 +12,7 @@ port of the fused core of ``fem_shell_tpu/mg.py``.
 - the coarsest level is solved with a Cholesky factor of the diagonally
   scaled dense operator.
 
-Three configurations are ported:
+These configurations are ported:
 
 - ``MultigridShellSystem(mesh, material)`` (the JAX default,
   ``assemble=True``, dtype float64) builds every level in f64 in the
@@ -56,16 +56,27 @@ Three configurations are ported:
   ``ops/stencil_resid.stencil_resid_dd(A64, x, b)`` (compensated) minus
   the f32 class-table term E x, E = A_true - A64.
 
+- Curved shells (a non-planar grid, e.g. ``shells.scordelis_lo``) take
+  Galerkin coarse levels (``coarse_op="galerkin"``, the default there):
+  level l >= 1 is ``stencil_rap`` = P^T A P of level l-1's f64 values, a
+  9-offset stencil, so only level 0 is assembled. ``df_cycle=True`` (with
+  ``df_operator=True``) keeps every level in f64 and runs the whole
+  V-cycle in f64 under the f64 CG: native f64 takes the place of the JAX
+  package's two-float32 cycle (``mg_df.py``). ``cycle="W"`` adds a second
+  coarse visit, ``cycle="K"`` solves each coarse system with two
+  truncated flexible-CG steps (``k_depth`` bounds the K levels; the outer
+  CG then runs flexible).
+
 On the TPU the JAX package runs the outer CG in two-float32 ("df")
 arithmetic because its f64 is emulated; on a GPU f64 is native, so the
-port's CG is f64 wherever the JAX package's is df. Galerkin coarse
-operators (curved shells), W/K cycles, the df-valued cycle, f32 levels
-without ``df_operator`` (the f32 exact-geometry assembly) and the level-0
-class operator on the coarsest level are not ported yet (ROADMAP.md).
+port's CG is f64 wherever the JAX package's is df. f32 levels without
+``df_operator`` (the f32 exact-geometry assembly) and the level-0 class
+operator on the coarsest level are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Union
 
 import numpy as np
@@ -245,9 +256,127 @@ def _is_planar(coords, tol: float = 1e-6) -> bool:
     return float(np.sqrt(max(w[0], 0.0) / w[-1])) <= tol
 
 
+class _RebuildProf:
+    """Stage profiler of ``reassemble(profile=True)``: each ``mark``
+    synchronizes the device (so the stage's kernels have finished) and
+    records the wall seconds since the previous mark; ``absorb`` adds
+    host timings measured inside a stage (indented, not summed)."""
+
+    def __init__(self, on: bool, device=None):
+        self.on = on
+        self.cuda = on and device is not None and torch.device(device).type == "cuda"
+        self.rows: list = []
+        self._t = time.perf_counter() if on else 0.0
+
+    def mark(self, name: str):
+        if not self.on:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.rows.append((name, t - self._t))
+        self._t = t
+
+    def absorb(self, prefix: str, timings: dict):
+        if not self.on:
+            return
+        for k, v in timings.items():
+            self.rows.append((f"{prefix}{k}", v))
+
+    def report(self):
+        if not self.on:
+            return
+        tot = sum(d for n, d in self.rows if not n.startswith("  "))
+        for name, d in self.rows:
+            print(f"  rebuild-prof {name:36s} {d:8.3f} s", flush=True)
+        print(f"  rebuild-prof {'TOTAL':36s} {tot:8.3f} s", flush=True)
+
+
+def _offset_dydx(off: int, nxp: int):
+    """Linear node offset -> (dy, dx) on a row-major grid, |dx| <= 1."""
+    for dy in (-1, 0, 1):
+        dx = off - dy * nxp
+        if abs(dx) <= 1:
+            return dy, dx
+    raise ValueError(f"offset {off} not within the 3x3 stencil of nxp={nxp}")
+
+
+def grid_rap_offsets(nxp_c: int):
+    """The 9-point coarse stencil offsets stencil_rap emits."""
+    return tuple(dy * nxp_c + dx for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def stencil_rap(values, free_c, offsets_f, nyp_f, nxp_f, npad_c):
+    """Galerkin coarse operator C = P^T A P in stencil space.
+
+    ``values`` is a fine-level stencil operator ([36, K, Npad] or flat
+    [36K, Npad]; block A(i, i+off_s) = v[a, b, s, i]) with K = 9 (quad) or
+    7 (tri) offsets within the 3x3 node stencil; P is the bilinear
+    node-grid prolongation (``_prolong``). With P's 3x3 support and A's
+    3x3 reach, C closes within the 3x3 coarse stencil, so the result is a
+    [36*9, npad_c] operator over ``grid_rap_offsets`` for the same
+    smoother, matvec kernel and coarse solve as an assembled level.
+
+    Why: coarse levels rediscretized on a subsampled CURVED grid (the
+    Scordelis-Lo roof) make a coarse polyhedral surface whose
+    inextensional-bending near-nullspace no longer matches the fine facet
+    model, and the V-cycle stalls; the Galerkin operator inherits the fine
+    energy by construction.
+
+    Every transfer weight is a power of two, so each term is exact; the
+    terms are summed in the JAX package's order (slot, d1y, d1x, Oy, Ox),
+    so the result equals its ``stencil_rap`` bit for bit. Dirichlet: the
+    fine values are BC-eliminated, so the coarse stencil is re-masked
+    against ``free_c`` ([6, npad_c]) and given unit diagonals on
+    constrained DOFs, the convention of the assemblers."""
+    k = len(offsets_f)
+    n_f = nyp_f * nxp_f
+    nyc, nxc = (nyp_f + 1) // 2, (nxp_f + 1) // 2
+    n_c = nyc * nxc
+    S = values.reshape(6, 6, k, -1)[:, :, :, :n_f].reshape(6, 6, k, nyp_f, nxp_f)
+    # zero-pad by 1 so sampling at fine node 2I + d1 is a strided slice
+    Sp = F.pad(S, (1, 1, 1, 1))
+    w = {-1: 0.5, 0: 1.0, 1: 0.5}
+    acc = {(oy, ox): None for oy in (-1, 0, 1) for ox in (-1, 0, 1)}
+    for s, off in enumerate(offsets_f):
+        oy, ox = _offset_dydx(int(off), nxp_f)
+        for d1y in (-1, 0, 1):
+            ty = oy + d1y
+            for d1x in (-1, 0, 1):
+                tx = ox + d1x
+                # S[s] sampled at fine (2Iy+d1y, 2Ix+d1x)
+                samp = Sp[:, :, s, d1y + 1 : d1y + 2 * nyc : 2, d1x + 1 : d1x + 2 * nxc : 2]
+                for Oy in range(ty // 2, (ty + 1) // 2 + 1):
+                    d2y = ty - 2 * Oy
+                    if abs(d2y) > 1:
+                        continue
+                    for Ox in range(tx // 2, (tx + 1) // 2 + 1):
+                        d2x = tx - 2 * Ox
+                        if abs(d2x) > 1:
+                            continue
+                        t = (w[d1y] * w[d1x] * w[d2y] * w[d2x]) * samp
+                        prev = acc[(Oy, Ox)]
+                        acc[(Oy, Ox)] = t if prev is None else prev + t
+    del Sp, S
+    out = torch.stack([acc[(oy, ox)] for oy in (-1, 0, 1) for ox in (-1, 0, 1)], dim=2)
+    del acc
+    # coarse Dirichlet elimination: zero rows/cols, unit diagonal
+    fg = free_c[:, :n_c].reshape(6, nyc, nxc).to(out.dtype)
+    fgp = F.pad(fg, (1, 1, 1, 1))
+    nb = torch.stack(
+        [fgp[:, 1 + oy : 1 + oy + nyc, 1 + ox : 1 + ox + nxc] for oy in (-1, 0, 1) for ox in (-1, 0, 1)],
+        dim=1,
+    )  # [6, 9, nyc, nxc]: the free mask of the node each slot points at
+    out = out * fg[:, None, None] * nb[None, :, :]
+    for a in range(6):
+        out[a, a, 4] = torch.where(fg[a] > 0, out[a, a, 4], torch.ones_like(out[a, a, 4]))
+    return F.pad(out.reshape(36 * 9, n_c), (0, npad_c - n_c))
+
+
 class MultigridShellSystem:
-    """Shell solver with a geometric V-cycle preconditioner (row-major
-    structured flat grid meshes; nx, ny divisible by 2^(levels-1))."""
+    """Shell solver with a geometric multigrid preconditioner (any
+    row-major structured grid mesh, flat or curved; nx, ny divisible by
+    2^(levels-1))."""
 
     def __init__(
         self,
@@ -266,14 +395,24 @@ class MultigridShellSystem:
         coarse_op: Optional[str] = None,
         cycle: Optional[str] = None,
         sym_spmv: Optional[bool] = None,
+        df_cycle: bool = False,
+        k_depth: Optional[int] = None,
         strip_nodes: int = 65536,
         device=None,
     ):
         """With ``assemble`` (the default) every level is built here: in f64
         without ``df_operator`` (dtype float64; ``solve``, ``solve_df``),
         or with ``df_operator=True`` (dtype float32) as f32 V-cycle levels
-        beside the f64 CG (``solve_df``, ``solve_df_refined``).
-        ``assemble=False`` (dtype float64) builds nothing here:
+        beside the f64 CG (``solve_df``, ``solve_df_refined``), or with
+        ``df_operator=True, df_cycle=True`` as f64 levels under an f64
+        V-cycle (the JAX package's two-float32 cycle, in native f64).
+        ``coarse_op``: "rediscretize" assembles every level on the
+        subsampled grid, "galerkin" computes levels l >= 1 as
+        ``stencil_rap`` of the level above (no assembly); None = galerkin
+        on a non-planar mesh, else rediscretize. ``cycle``: "V" (None),
+        "W" (two coarse visits) or "K" (two flexible-CG steps per coarse
+        level down to level ``k_depth``, every level when None; the outer
+        CG runs flexible). ``assemble=False`` (dtype float64) builds nothing here:
         ``solve_fused`` assembles every level on every call, the JAX
         package's fused configuration. ``class_operator`` picks the
         df_operator fine level: None = the class operator where
@@ -291,6 +430,9 @@ class MultigridShellSystem:
         ``device`` defaults to CUDA; pass ``"cpu"`` to run on the host."""
         if isinstance(mesh, MeshGenParams):
             mesh, _, _ = generate(mesh)
+        if df_cycle and not df_operator:
+            raise ValueError("df_cycle requires df_operator=True (the df cycle's levels "
+                             "come from the df_operator assembly)")
         if df_operator:
             if dtype != torch.float32:
                 raise ValueError(
@@ -308,17 +450,23 @@ class MultigridShellSystem:
             raise ValueError(f"unknown smoother {smoother!r}")
         if cycle not in (None, "V", "W", "K"):
             raise ValueError(f"unknown cycle {cycle!r}")
-        if cycle in ("W", "K"):
-            raise NotImplementedError(f"cycle={cycle!r}: {_ROADMAP}")
         self.device = resolve_device(device)
         self.material = material
         self.dtype = dtype
         self.df_operator = bool(df_operator)
+        self.df_cycle = bool(df_cycle)
+        # every level's values in f64: the f64 hierarchy, or the df cycle
+        self._f64_levels = not self.df_operator or self.df_cycle
         self.nu_smooth = nu_smooth
         self.omega = omega
         self.smoother = smoother
         self.cheby_lo = 0.25
-        self.cycle = "V"
+        # None = V everywhere: W's composed coarse solver 2M - MAM is SPD
+        # only while lambda_max(AM) < 2, which deep curved (Galerkin) f32
+        # hierarchies violate (the JAX package's roof W runs diverged);
+        # K is SPD at any depth but varies from call to call
+        self.cycle = cycle or "V"
+        self.k_depth = k_depth
         self._big = len(mesh.tri) + len(mesh.quad) >= large.GRID_MIN_ELEMENTS
         self.sym_spmv = self._big if sym_spmv is None else bool(sym_spmv)
         self._df_strip_nodes = int(strip_nodes)
@@ -334,8 +482,13 @@ class MultigridShellSystem:
             coarse_op = "rediscretize" if _is_planar(mesh.coords) else "galerkin"
         if coarse_op not in ("rediscretize", "galerkin"):
             raise ValueError(f"unknown coarse_op {coarse_op!r}")
-        if coarse_op == "galerkin":
-            raise NotImplementedError(f"Galerkin coarse operators (curved shells): {_ROADMAP}")
+        if coarse_op == "galerkin" and class_operator:
+            raise ValueError(
+                "coarse_op='galerkin' needs materialized fine values as the "
+                "RAP source; class_operator=True stores none"
+            )
+        if coarse_op == "galerkin" or self.df_cycle:
+            class_operator = False  # the RAP source / the f64 cycle's fine level
         self.coarse_op = coarse_op
 
         if n_levels is None:
@@ -373,10 +526,12 @@ class MultigridShellSystem:
                 device=self.device,
             )
             self._systems.append(sys_l)
+            galerkin_l = l > 0 and coarse_op == "galerkin"
             self.levels.append(
                 _Level(
                     values=None,
-                    offsets=tuple(int(o) for o in sys_l.offsets),
+                    offsets=(grid_rap_offsets(nxp_l) if galerkin_l
+                             else tuple(int(o) for o in sys_l.offsets)),
                     free_t=sys_l.free_t,
                     inv_diag=None,
                     nyp=nyp_l,
@@ -399,80 +554,102 @@ class MultigridShellSystem:
             self._assemble_levels()
 
     # ------------------------------------------------------------------
-    def _assemble_levels(self):
-        """Build (or rebuild) every level. Without df_operator: every level
-        in f64 (values, diagonal, damping), the coarsest with its f64 host
-        inverse; the JAX package assembles these with ``assemble()``
-        (fem_shell_tpu/mg.py:676), the port through the grid pipeline, whose
-        sums have one order. With df_operator: the fine class operator, or
-        the materialized f64 fine operator; coarse levels assembled in f64
-        and kept in f32 with the diagonal of the f64 values (the JAX
-        package's df-assembly hi part); the coarsest level's f32 factor;
-        the fine operator's upper half (``_build_fine_sym``). Every
+    def _assemble_levels(self, prof: Optional[_RebuildProf] = None):
+        """Build (or rebuild) every level, each old operator released before
+        its level is rebuilt.
+
+        - f64 levels (no df_operator, or df_cycle): values, diagonal and
+          damping in f64, the coarsest with its f64 host inverse. The JAX
+          package assembles these with ``assemble()``
+          (fem_shell_tpu/mg.py:676), the port through the grid pipeline,
+          whose sums have one order. With df_cycle, level 0's values are
+          also the CG's fine operator (``_fine64``).
+        - df_operator: the fine class operator, or the materialized f64 fine
+          operator; the other levels built in f64 and kept in f32 with the
+          diagonal of the f64 values (the JAX package's df-assembly hi
+          part); the coarsest level's f32 factor.
+        - Galerkin levels (l >= 1 with ``coarse_op="galerkin"``) are
+          ``stencil_rap`` of level l-1's f64 values: nothing is assembled
+          below level 0. On the df_operator pair path the RAP chain runs in
+          f64: each level is kept as the f32 cast of its f64 values, which
+          live on only until the next level is built from them (the JAX
+          package RAPs the f32 hi part, ROADMAP.md "Differences").
+
+        Then the fine operator's upper half (``_build_fine_sym``). Every
         assembled level comes from the grid pipeline (the JAX package does
         so from ``large.GRID_MIN_ELEMENTS`` fine elements,
         fem_shell_tpu/mg.py:658-662, and scatters below), and each level's
-        damping from ``_level_omega``. Each old operator is released
-        before its level is rebuilt."""
+        damping from ``_level_omega``. ``prof`` marks each stage
+        (``reassemble(profile=True)``)."""
+        prof = prof or _RebuildProf(False)
         self._cdf = self._fine64 = self._fine_sym = None
         self._levels32 = None  # stale f32 copies of the old values
         self._class_pair_done = False
+        dt = torch.float64 if self._f64_levels else torch.float32
+        prev64 = None  # level l-1's f64 values: the next Galerkin level's source
         for l, sys_l in enumerate(self._systems):
-            lvl = dataclasses.replace(self.levels[l], values=None, cparts=None, dense_inv=None)
+            lvl = dataclasses.replace(self.levels[l], values=None, cparts=None, dense_inv=None,
+                                      chol=None, chol_scale=None)
             self.levels[l] = lvl
             if l == 0:
                 self._fine = lvl  # drop the old level-0 values with this alias too
-            if not self.df_operator:
-                v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
-                                             with_diag=True)
-                lvl = dataclasses.replace(
-                    lvl, values=v64, free_t=sys_l.free_t,
-                    inv_diag=torch.where(d64 != 0, 1.0 / d64, torch.ones_like(d64)))
-                del v64, d64
-                if l == self.n_levels - 1:
-                    lvl = self._coarse_factor(lvl)
-                else:
-                    om, lam = self._level_omega(lvl)
-                    lvl = dataclasses.replace(lvl, omega=om, lam=lam)
-                self.levels[l] = lvl
-                continue
-            free32 = sys_l.free_t.to(torch.float32)
             cparts = None
             if l == 0 and self._class_mode is not False:
                 # matrix-free fine level: exact-stencil class tables instead
                 # of a materialized operator (uniform grids only)
+                tim = {} if prof.on else None
                 try:
-                    cparts, diag = self._build_class_level(self._fine_mesh, sys_l)
+                    cparts, diag = self._build_class_level(self._fine_mesh, sys_l, timings=tim)
                 except ValueError:
                     if self._class_mode:
                         raise
                     self._class_mode = False
                 else:
                     self._class_mode = True
+                    prof.absorb("  class/", tim or {})
+                    prof.mark("class/build+upload")
             if cparts is not None:
                 lvl = dataclasses.replace(
-                    lvl, cparts=cparts, free_t=free32,
+                    lvl, cparts=cparts, free_t=sys_l.free_t.to(dt),
                     inv_diag=torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)),
                 )
+                prof.mark("class/inv_diag")
             else:
-                v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
-                                             with_diag=True)
-                if l == 0:
+                if l > 0 and self.coarse_op == "galerkin":
+                    prev = self.levels[l - 1]
+                    v64 = stencil_rap(prev64, sys_l.free_t, prev.offsets, prev.nyp, prev.nxp,
+                                      lvl.npad).reshape(36, len(lvl.offsets), lvl.npad)
+                    d64 = soa_diagonal(v64, offsets=lvl.offsets)
+                    stage = "rap"
+                else:
+                    v64, d64 = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
+                                                 with_diag=True)
+                    stage = "assemble"
+                prof.mark(f"L{l}/{stage}")
+                if l == 0 and self.df_operator:
                     self._fine64 = v64
                 lvl = dataclasses.replace(
-                    lvl, values=v64.to(torch.float32), free_t=free32,
-                    inv_diag=torch.where(d64 != 0, 1.0 / d64, torch.ones_like(d64)).to(torch.float32),
+                    lvl, values=v64.to(dt), free_t=sys_l.free_t.to(dt),
+                    inv_diag=torch.where(d64 != 0, 1.0 / d64, torch.ones_like(d64)).to(dt),
                 )
-                del v64
+                # the next Galerkin level's source: an alias of the f64
+                # level, on the pair path kept beside the f32 copy until
+                # the next level is built
+                prev64 = v64 if (l + 1 < self.n_levels and self.coarse_op == "galerkin") else None
+                del v64, d64
+                prof.mark(f"L{l}/inv_diag")
             if l == self.n_levels - 1:
                 lvl = self._coarse_factor(lvl)
+                prof.mark("coarse/factor")
             else:
                 om, lam = self._level_omega(lvl)
                 lvl = dataclasses.replace(lvl, omega=om, lam=lam)
+                prof.mark("class/omega" if lvl.cparts is not None else f"L{l}/omega")
             self.levels[l] = lvl
         self._fine = self.levels[0]
         self._cdf = self._fine.cparts
         self._build_fine_sym()
+        prof.mark("fine/sym")
 
     def _build_fine_sym(self):
         """The materialized fine operator's off >= 0 slots for the CG
@@ -485,12 +662,18 @@ class MultigridShellSystem:
         if self.sym_spmv and self._fine64 is not None and is_symmetric(offsets):
             self._fine_sym = prepare_sym_values(self._fine64, offsets)
 
-    def _build_class_level(self, mesh, sys_l):
+    def _build_class_level(self, mesh, sys_l, timings: Optional[dict] = None):
         """Host: exact-stencil tables -> the fine level's class operator
         and its f32 diagonal, on the system's device (raises ValueError
-        off uniform grids)."""
-        self._exact_st = build_exact_stencil(mesh, self.material, sys_l.offsets, grid=self.grid)
-        return build_class_parts(self._exact_st, sys_l.pattern.n_pad, device=self.device)
+        off uniform grids). ``timings`` receives the host seconds of each
+        stage of the tables and of ``class_parts``."""
+        self._exact_st = build_exact_stencil(mesh, self.material, sys_l.offsets, grid=self.grid,
+                                             timings=timings)
+        t0 = time.perf_counter()
+        out = build_class_parts(self._exact_st, sys_l.pattern.n_pad, device=self.device)
+        if timings is not None:
+            timings["class_parts"] = time.perf_counter() - t0
+        return out
 
     def _coarse_factor(self, c: _Level) -> _Level:
         """Coarsest-level direct solve. f64 levels: the inverse of the
@@ -500,9 +683,13 @@ class MultigridShellSystem:
         package's eps cascade: if the factor fails, the scaled operator
         (unit diagonal, so the shifts are relative) is shifted by 1e-5,
         then 1e-3; a shift on a preconditioner-only coarse solve is
-        harmless. (solve_fused keeps its own unshifted factor.)"""
-        if not self.df_operator:
-            inv = np.linalg.inv(_densify(c).cpu().numpy())
+        harmless. (solve_fused keeps its own unshifted factor.) The df
+        cycle's f64 levels take the f64 inverse too: the JAX package's
+        ``_coarse_factor_df`` inverts its full two-float32 pair in f64.
+        The f64 inverse leaves out an exact null space
+        (``_coarse_inverse``; ROADMAP.md Queue 3)."""
+        if self._f64_levels:
+            inv = _coarse_inverse(_densify(c).cpu().numpy())
             return dataclasses.replace(c, dense_inv=torch.as_tensor(inv, device=self.device))
         dense = _densify(c)
         d = torch.diagonal(dense)
@@ -625,12 +812,55 @@ class MultigridShellSystem:
         return self._smooth(lvl, x, b, self.nu_smooth)
 
     def _coarse_visit(self, levels, li: int, rc):
-        """Coarse-level solve for the V cycle: one recursive visit."""
-        return self._vcycle(levels, li, rc)
+        """Coarse-level solve for the cycle type. "V": one recursive visit.
+        "W": a second visit on the updated residual (the composed solver
+        2M - MAM is symmetric, SPD only while lambda_max(AM) < 2). "K"
+        (Notay's K-cycle): two truncated flexible-CG steps on the coarse
+        system, preconditioned by the visit at that level, on levels down
+        to ``k_depth``; each application is SPD but nonlinear in rc, so the
+        outer CG runs flexible."""
+        nxt = levels[li]
+        direct = nxt.chol is not None or nxt.dense_inv is not None
+        if (self.cycle == "K" and li < len(levels) - 1 and not direct
+                and (self.k_depth is None or li <= self.k_depth)):
+            return self._ksolve(levels, li, rc)
+        ec = self._vcycle(levels, li, rc)
+        if self.cycle == "W" and li < len(levels) - 1:
+            rc2 = rc - self._mv(nxt, ec) * nxt.free_t
+            ec = ec + self._vcycle(levels, li, rc2)
+        return ec
+
+    def _ksolve(self, levels, li: int, b):
+        """Two truncated flexible-CG steps on A_li e = b, preconditioned by
+        the cycle visit at this level (which recurses through
+        ``_coarse_visit``, so every level below gets the same
+        acceleration). The zero-guarded divisions keep a zero residual
+        from turning into 0/0."""
+        lvl = levels[li]
+
+        def mv(x):
+            return self._mv(lvl, x) * lvl.free_t
+
+        def sdiv(a, d):
+            return a / torch.where(d == 0, torch.ones_like(d), d)
+
+        z1 = self._vcycle(levels, li, b)
+        q1 = mv(z1)
+        zq1 = torch.sum(z1 * q1)
+        alpha1 = sdiv(torch.sum(z1 * b), zq1)
+        r = b - alpha1 * q1
+        z2 = self._vcycle(levels, li, r)
+        q2 = mv(z2)
+        beta = sdiv(torch.sum(z2 * q1), zq1)
+        p = z2 - beta * z1
+        qp = q2 - beta * q1
+        alpha2 = sdiv(torch.sum(p * r), torch.sum(p * qp))
+        return alpha1 * z1 + alpha2 * p
 
     # ------------------------------------------------------------------
     def _fused_impl(self, coords_list, tables_list, forces_t, rtol, maxiter, arith):
-        """Assemble every level in f64, build the f32 V-cycle (Jacobi
+        """Assemble every level in f64 (Galerkin levels: ``stencil_rap`` of
+        the level above, in f64), build the f32 V-cycle (Jacobi
         diagonals, power-iteration damping, coarse Cholesky) and run f64
         PCG over the fine operator. Returns (x [6, Npad] f64, iters,
         relative residual).
@@ -645,11 +875,18 @@ class MultigridShellSystem:
         if arith != "f64":
             raise ValueError(f"arith={arith!r}: the port runs arith='f64'")
         levels32 = []
-        fine64 = None
+        fine64 = prev64 = None
         for l, sys_l in enumerate(self._systems):
             base = self.levels[l]
-            v64, diag = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
-                                          with_diag=True)
+            if l > 0 and self.coarse_op == "galerkin":
+                prev = self.levels[l - 1]
+                v64 = stencil_rap(prev64, base.free_t, prev.offsets, prev.nyp, prev.nxp,
+                                  base.npad).reshape(36, len(base.offsets), base.npad)
+                diag = soa_diagonal(v64, offsets=base.offsets)
+            else:
+                v64, diag = sys_l.assemble_df(strip_nodes=self._df_strip_nodes, method="grid",
+                                              with_diag=True)
+            prev64 = v64
             if l == 0:
                 fine64 = v64
             inv_diag = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag))
@@ -676,6 +913,7 @@ class MultigridShellSystem:
                 )
             levels32.append(lvl)
             del v64
+        del prev64
 
         fine = levels32[0]
         b64 = forces_t * self.levels[0].free_t
@@ -686,7 +924,8 @@ class MultigridShellSystem:
         def prec64(r):
             return self._vcycle(levels32, 0, r.to(torch.float32)).to(torch.float64)
 
-        res = pcg(mv64, b64, rtol=rtol, maxiter=maxiter, apply_prec=prec64)
+        res = pcg(mv64, b64, rtol=rtol, maxiter=maxiter, apply_prec=prec64,
+                  flexible=self.cycle == "K")
         return res.x, res.iters, res.residual
 
     def solve_fused(self, forces, rtol: float = 1e-9, maxiter: int = 400, arith: str = "f64"):
@@ -742,7 +981,7 @@ class MultigridShellSystem:
         def prec(r):
             return self._vcycle(self.levels, 0, r)
 
-        res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=prec)
+        res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=prec, flexible=self.cycle == "K")
         self.last_cg = res
         return self._out(res.x, False)
 
@@ -763,8 +1002,11 @@ class MultigridShellSystem:
 
     # ------------------------------------------------------------------
     # df_operator solves: f64 PCG over the fine operator (the JAX
-    # package's df CG, in native f64), preconditioned by the f32 V-cycle
+    # package's df CG, in native f64), preconditioned by the f32 V-cycle,
+    # or with df_cycle by the f64 one (the JAX package's df-valued cycle)
     def _prec(self, r):
+        if self.df_cycle:
+            return self._vcycle(self.levels, 0, r)
         return self._vcycle(self.levels, 0, r.to(torch.float32)).to(torch.float64)
 
     def _inner_solve(self, b, rtol: float, maxiter: int):
@@ -784,7 +1026,8 @@ class MultigridShellSystem:
                     return stencil_spmv_sym(sym, x, offsets)
                 return stencil_spmv(fine64, x, offsets)
 
-        res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=self._prec)
+        res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=self._prec,
+                  flexible=self.cycle == "K")
         return res.x, res.iters, res.residual
 
     def _refine_residual(self, x, b):
@@ -823,8 +1066,9 @@ class MultigridShellSystem:
         per class): the refinement correction E = A_true - A64 is then a
         class table. The old operator, its f32 level-0 values and its
         upper half are released first (two fine operators never
-        coexist); level 0 takes the f32 t0 values and their Jacobi
-        diagonal, keeps its damping, and the upper half is rebuilt."""
+        coexist); level 0 takes the f32 t0 values (with df_cycle the
+        f64 operator itself) and their Jacobi diagonal, keeps its damping,
+        and the upper half is rebuilt."""
         if self._class_pair_done:
             return
         self._ensure_exact_stencil()
@@ -832,6 +1076,8 @@ class MultigridShellSystem:
         self.levels[0] = self._fine = lvl
         self._fine64 = self._fine_sym = None
         a64, hi = class_pair_flat(*self._pair_tabs, lvl.npad, device=self.device)
+        if self.df_cycle:  # the f64 cycle smooths on the f64 operator itself
+            hi = a64
         diag = soa_diagonal(hi, offsets=lvl.offsets)
         self._fine64 = a64
         self.levels[0] = self._fine = dataclasses.replace(
@@ -870,7 +1116,9 @@ class MultigridShellSystem:
                  return_device: bool = False):
         """f64 PCG to ``rtol`` over the fine operator, preconditioned by the
         f32 V-cycle: the df_operator levels, or f32 copies of the f64
-        levels (the JAX package's df CG over f64 levels, in native f64).
+        levels (the JAX package's df CG over f64 levels, in native f64);
+        with ``df_cycle`` by the f64 cycle on the f64 levels (the CG
+        matvec from the fine operator's upper half where ``sym_spmv``).
         ``forces`` is host [n, 6] or a staged [6, npad] tensor. Returns the
         displacements as an f64 tensor [n_nodes, 6] on the device, or with
         ``return_device`` the [6, npad] solution vector; ``last_iters`` and
@@ -888,7 +1136,7 @@ class MultigridShellSystem:
                 return self._vcycle(levels32, 0, r.to(torch.float32)).to(torch.float64)
 
             res = pcg(lambda x: stencil_spmv(fine.values, x, fine.offsets), b, rtol=rtol,
-                      maxiter=maxiter, apply_prec=prec32)
+                      maxiter=maxiter, apply_prec=prec32, flexible=self.cycle == "K")
             x, it, res = res.x, res.iters, res.residual
         else:
             b = self._staged_forces(forces) * self._systems[0].free_t
@@ -941,15 +1189,53 @@ class MultigridShellSystem:
         self.refine_inner_iters = inner
         return self._out(x, return_device)
 
-    def reassemble(self):
+    def reassemble(self, profile: bool = False):
         """Rebuild every level's operator: the class tables from the mesh on
-        a class level, f64 assembly elsewhere, then the damping and the
-        coarsest factor (``solve_df``'s f32 copies are made again). On the
-        pair path the next ``solve_df_refined`` swaps the class-consistent
-        operator in again (its host tables are kept). A coupled FSI loop
-        calls it when the geometry changes; benchmarks time it with the
-        solve."""
-        self._assemble_levels()
+        a class level, f64 assembly on level 0 and on rediscretized levels,
+        ``stencil_rap`` of the rebuilt level above on Galerkin levels, then
+        the damping and the coarsest factor (``solve_df``'s f32 copies are
+        made again). On the pair path the next ``solve_df_refined`` swaps
+        the class-consistent operator in again (its host tables are kept).
+        A coupled FSI loop calls it when the geometry changes; benchmarks
+        time it with the solve. ``profile=True`` prints the wall seconds of
+        each stage (each ended by a device synchronize) and keeps them as
+        ``rebuild_profile``, a list of (stage, seconds)."""
+        prof = _RebuildProf(profile, self.device)
+        self._assemble_levels(prof)
+        prof.report()
+        if profile:
+            self.rebuild_profile = list(prof.rows)
+
+
+def _coarse_inverse(dense: np.ndarray, rcond: float = 1e-12) -> np.ndarray:
+    """Host f64 inverse of a symmetric coarsest operator A. With D its
+    diagonal and S = D^-1/2 A D^-1/2: where every eigenvalue of S exceeds
+    ``rcond`` times the largest, A is regular and this is
+    ``np.linalg.inv(A)``, as in the JAX package (S's spectrum spans
+    ~1e-3..4 on the plates, 7.6e-5..4 on the roof besides its null
+    vector). Otherwise it is the pseudo-inverse D^-1/2 S^+ D^-1/2 without
+    those eigenvalues: an exact null space (the Scordelis-Lo roof's rigid
+    axial translation, eigenvalue ~1e-15) would have its rounding
+    amplified ~1e15-fold into every coarse correction by the inverse
+    (ROADMAP.md "Differences"). The inverse is tried first and kept when
+    max|S^-1| certifies the spectrum (lambda_min(S) >= 1 / (n max|S^-1|),
+    lambda_max(S) <= its largest absolute row sum); only a matrix that
+    fails the test pays for the eigendecomposition."""
+    d = np.diag(dense)
+    s = np.where(d > 0, 1.0 / np.sqrt(np.where(d > 0, d, 1.0)), 1.0)
+    scaled = dense * s[:, None] * s[None, :]
+    try:
+        inv = np.linalg.inv(dense)
+    except np.linalg.LinAlgError:  # an exactly singular pivot
+        inv = None
+    if inv is not None:
+        lam_max = np.abs(scaled).sum(axis=1).max()
+        if len(d) * np.abs(inv / s[:, None] / s[None, :]).max() * lam_max * rcond < 1.0:
+            return inv
+    w, v = np.linalg.eigh(scaled)
+    keep = np.abs(w) > rcond * np.abs(w).max()
+    vk = v[:, keep]
+    return ((vk / w[keep]) @ vk.T) * s[:, None] * s[None, :]
 
 
 def _densify(lvl: _Level) -> torch.Tensor:

@@ -26,6 +26,7 @@ ported).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -94,7 +95,7 @@ class ExactStencil:
 
 
 def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
-                        grid=None) -> ExactStencil:
+                        grid=None, timings=None) -> ExactStencil:
     """Host-side: longdouble patch assembly -> row-class tables.
 
     ``mesh`` must be a uniform structured grid (coords affine in (ix, iy)
@@ -103,8 +104,18 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
     class-consistent, and AssertionError when the patch's two interior
     representatives disagree. ``grid`` (optional GridInfo) skips the
     connectivity re-verification when the caller already detected it.
+    ``timings`` (optional dict) receives the host seconds of each stage.
     """
     from fem_shell_tpu_torch.mg import _grid_conn, detect_structured_grid
+
+    t_last = time.perf_counter()
+
+    def mark(name):
+        nonlocal t_last
+        if timings is not None:
+            t = time.perf_counter()
+            timings[name] = t - t_last
+            t_last = t
 
     if grid is None:
         grid = detect_structured_grid(mesh)
@@ -113,6 +124,7 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
     nxp, nyp = grid.nxp, grid.nyp
     if nxp < _P or nyp < _P:
         raise ValueError(f"grid {nyp}x{nxp} smaller than the {_P}x{_P} class patch")
+    mark("grid_detect")
 
     # uniformity check in plain f64 (its own rounding, ~3 ulp, sits far
     # inside the 64-eps gate)
@@ -132,6 +144,7 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
     c00 = coords[0, 0].astype(LD)
     ex = (coords[0, -1].astype(LD) - c00) / LD(nxp - 1)
     ey = (coords[-1, 0].astype(LD) - c00) / LD(nyp - 1)
+    mark("ideal_check")
 
     mask = np.asarray(
         mesh.dirichlet_mask() if dirichlet_mask is None else dirichlet_mask, bool
@@ -143,6 +156,7 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
     mask_patch = mask[rep_y][:, rep_x]  # [P, P, 6]
     if not (mask == mask_patch[cy_idx][:, cx_idx]).all():
         raise ValueError("Dirichlet mask is not class-consistent with the patch")
+    mark("mask_check")
 
     # ---- longdouble patch assembly ----------------------------------
     dm_ld, dp_ld = _material_ld(material.nu, material.em, material.thickness)
@@ -168,6 +182,7 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
     kmat[cdof, :] = LD(0)
     kmat[:, cdof] = LD(0)
     kmat[cdof, cdof] = LD(1)
+    mark("patch_ld_assembly")
 
     # ---- extract class tables ----------------------------------------
     offs2d = _split_offsets(offsets, nxp)
@@ -193,6 +208,7 @@ def build_exact_stencil(mesh, material, offsets, dirichlet_mask=None,
     rem = table - t0.astype(LD)
     t1 = rem.astype(np.float32)
     t2 = (rem - t1.astype(LD)).astype(np.float32)
+    mark("table_extract")
     return ExactStencil(
         offsets=tuple(int(o) for o in offsets),
         offs2d=offs2d,
