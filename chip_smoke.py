@@ -81,7 +81,8 @@ before the last line:
    strip and family of every level: the levels come from the grid
    assembly), and repeated solves equal bit for bit. The assembly of every
    level is timed apart, through the grid pipeline (the path's) and
-   through index_add_ (the path's assembly before the grid pipeline).
+   through LargeShellSystem.assemble() (the element kernel per chunk and
+   the pass-by-pass scatter).
 4. Scale: the same program at 1024x1024 tri (2,097,152 elements,
    6,303,750 DOF, 7 levels) and quad (1,048,576 elements, the same DOF;
    every level's elem_stiffness<4> launches on the main path), centre
@@ -117,7 +118,8 @@ before the last line:
    (relative 1e-4).
 7. The grid assembly alone: LargeShellSystem.assemble_df(method="grid")
    of the 1024x1024 tri and quad fine levels against assemble() (the
-   chunked index_add_ scatter), gate 1e-13 of max|A| (the JAX package's
+   element kernel per chunk and the pass-by-pass scatter), gate 1e-13 of
+   max|A| (the JAX package's
    grid-against-f64 contract, tests/test_assemble_grid.py), two grid
    assemblies bitwise equal, its diagonal equal to soa_diagonal, and
    elem_stiffness launched once per strip and family; seconds and peak
@@ -176,6 +178,35 @@ before the last line:
    (df_operator=True, no df_cycle) with Galerkin levels on the 64x64 and
    128x128 roofs, solve_df(rtol=1e-6): iterations within 5 % and midside w
    within 1e-4 of the port's own CPU run (ROOF_PAIR_CPU).
+
+10. Unstructured meshes. (a) LargeShellSystem(reorder="rcm").assemble()
+   of the 416x416 quad plate renumbered by
+   np.random.default_rng(1).permutation (173,889 nodes, 1,043,334 DOF;
+   gather mode, K=9): against the same assembly with the plain element
+   math on the card at 1e-13 of max|A|, two assemblies bitwise equal,
+   elem_stiffness<4> once per 16,384-element chunk and the plain element
+   math never called; the gather-mode matvec timed against its bytes
+   bound. (b) AMGShellSystem(mesh, mat) (f64, W cycle, RCM), its
+   constructor timed with the set-up stages, solve(rtol=1e-10,
+   maxiter=200) twice: residual <= 1e-10, fewer than 100 iterations and
+   within 2 of the JAX package's CPU count (JAX_AMG_416), the centre within
+   1e-3 of the Kirchhoff value, two solves bitwise equal, the fine
+   assembly through elem_stiffness<4>; seconds per iteration, peak memory,
+   a profiled short solve and the cycle's products against their bytes
+   bounds. (c) AMGShellSystem(mesh, mat, dtype=float32,
+   df=True).solve_df_refined(rtol=1e-9) (the CLI's --precond amg
+   --refined): final true residual < 1e-9, a finite history, the centre
+   within 1e-3, u within 1e-6 of max|u| of (b). (d) LargeShellSystem's
+   routes: the Test-E I-beam with RCM and block-Jacobi within 1e-12 of
+   ShellSystem; solve_df_refined(rtol=1e-11, inner_rtol=1e-6) of a
+   renumbered (gather mode) and a plain (stencil mode) 64x64 plate within
+   1e-8 of ShellSystem, with stencil_spmv<double> = CG iterations +
+   passes and stencil_resid_dd<double> = passes in stencil mode (none in
+   gather mode); the I-beam refined twice through AMG within 1e-7 of the
+   f64 Jacobi-PCG LargeShellSystem. (e) The solver CLI in subprocesses
+   (--precond amg, --precond amg --refined, --reorder rcm, --refined) on a
+   written 64x64 plate: exit 0 and the .vtu displacements equal to the
+   library calls'.
 
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
@@ -339,6 +370,21 @@ JAX_GALERKIN_ITERS = {"q": 43, "t": 69}
 #         smoother='chebyshev', device='cpu'); u = s.solve_df(f, rtol=1e-6, maxiter=2000)
 #       print(n, s.last_iters, repr(float(u[mid, 2])))"
 ROOF_PAIR_CPU = {64: (54, -0.29977165876861), 128: (76, -0.30011196323392236)}
+# (CG iterations, centre w) of the JAX package's AMGShellSystem(mesh, mat)
+# (f64, W cycle, RCM) .solve(forces, rtol=1e-10, maxiter=200) on the 416^2
+# quad plate renumbered by np.random.default_rng(1).permutation (1,043,334
+# DOF; tests/test_amg.py::test_amg_million_dof), on the CPU with x64:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+#     jax.config.update('jax_enable_x64', True); import numpy as np
+#     from fem_shell_tpu.amg import AMGShellSystem; from fem_shell_tpu.materials import Material
+#     from fem_shell_tpu.mesh import permute_nodes; from fem_shell_tpu.meshgen import MeshGenParams, generate
+#     m, r, f = generate(MeshGenParams('q', 416, 416, 0, 0, 10, 10, (0,0,0,0), 300.0, 2, True, 'z'))
+#     p = np.random.default_rng(1).permutation(m.n_nodes); a = AMGShellSystem(permute_nodes(m, p),
+#     Material(0.3, 1e7, 0.5)); u = a.solve((r * f)[p], rtol=1e-10, maxiter=200)
+#     print(a.last_iters, repr(float(u[int(np.nonzero(p == m.n_nodes // 2)[0][0]), 2])))"
+# (set-up 64.7 s, solve 66.3 s, residual 8.56e-11, levels 173889 / 31718 /
+# 3671 / 484 / 73)
+JAX_AMG_416 = (48, 0.1064661181265919)
 
 
 class Gates:
@@ -902,7 +948,7 @@ def elem_kernel_phase(gates, cases, bandwidth, peaks, device="cuda"):
 
 def grid_phase(gates, n, device="cuda"):
     """LargeShellSystem.assemble_df(method="grid") of the n^2 tri and quad
-    fine levels against the index_add_ assembly; the first grid assembly of
+    fine levels against the scatter assembly (assemble()); the first grid assembly of
     each is a run of this slice's path, counted from zero."""
     from fem_shell_tpu_torch import Material
     from fem_shell_tpu_torch.large import LargeShellSystem
@@ -945,16 +991,16 @@ def grid_phase(gates, n, device="cuda"):
         err = float((v - ref).abs().max()) / scale
         tag = f"grid {et}{n} K={v.shape[1]} Npad={v.shape[2]}"
         gates.check(bool(torch.isfinite(v).all()) and err <= GRID_GATE,
-                    f"{tag}: max|A_grid - A_index_add|/max|A| = {err:.3e} <= {GRID_GATE:.0e}")
+                    f"{tag}: max|A_grid - A_scatter|/max|A| = {err:.3e} <= {GRID_GATE:.0e}")
         gates.check(same and torch.equal(d, soa_diagonal(v, sys_.offsets)),
                     f"{tag}: two grid assemblies bitwise equal, diagonal equal to soa_diagonal")
         gates.check(launches[f"elem{m}"] == want and launches[f"elem{7 - m}"] == 0,
                     f"{tag}: elem_stiffness<{m}> launches {launches[f'elem{m}']} == {want} strips x families")
         rec = {"case": tag, "rel_err": err, "bitwise_equal": same, "grid_s": grid_s,
-               "grid_again_s": grid2_s, "index_add_s": index_s, "grid_peak_bytes": grid_peak,
-               "index_add_peak_bytes": index_peak, "launches": launches, "expected_elem": want}
+               "grid_again_s": grid2_s, "scatter_s": index_s, "grid_peak_bytes": grid_peak,
+               "scatter_peak_bytes": index_peak, "launches": launches, "expected_elem": want}
         print(f"  {tag}: rel_err={err:.2e} bitwise={same} grid_s={grid_s:.4f} again={grid2_s:.4f} "
-              f"index_add_s={index_s:.4f} peak grid={grid_peak} index_add={index_peak} "
+              f"scatter_s={index_s:.4f} peak grid={grid_peak} scatter={index_peak} "
               f"elem launches {launches[f'elem{m}']}/{want}", flush=True)
         rows.append(rec)
         del v, d, ref, sys_
@@ -1005,10 +1051,10 @@ def device_profile(fn):
 def assembly_times(mg):
     """Seconds and peak bytes of one assembly of every level of ``mg``:
     through the grid pipeline (what solve_fused runs) and through the
-    index_add_ scatter (what it ran before)."""
+    scatter assembly, assemble() (what it ran before)."""
     out = {}
     for method, run in (("grid", lambda s: s.assemble_df(method="grid", with_diag=True)),
-                        ("index_add", lambda s: s.assemble())):
+                        ("scatter", lambda s: s.assemble())):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -1998,13 +2044,20 @@ def roof_pair_phase(gates, n, want, device="cuda"):
             "launches": got, "launches_total": {k: ctor[k] + got[k] for k in got}}
 
 
+def vtu_displacement(path):
+    """The [n, 3] displacement array of a .vtu the port's writer wrote."""
+    import re
+
+    body = re.search(r'Name="displacement"[^>]*>\n(.*?)</DataArray>', open(path).read(), re.S).group(1)
+    return np.array([float(v) for v in body.split()]).reshape(-1, 3)
+
+
 def cli_phase(gates, device="cuda"):
     """The port's meshgen and solver CLIs in subprocesses on the card:
     exit 0, and the .vtu displacements equal to the library solve of the
     same files (the default route: ShellSystem; --precond mg:
     MultigridShellSystem.solve)."""
     import os
-    import re
     import shutil
 
     from fem_shell_tpu_torch import Material, MultigridShellSystem, ShellSystem
@@ -2041,12 +2094,7 @@ def cli_phase(gates, device="cuda"):
         else:
             u = ShellSystem(mesh, mat, device=device).solve(forces, rtol=1e-10, maxiter=20000)
         u = u.cpu().numpy()
-        diff = float("inf")
-        if ok:
-            txt = open(out_base + ".vtu").read()
-            body = re.search(r'Name="displacement"[^>]*>\n(.*?)</DataArray>', txt, re.S).group(1)
-            vtu = np.array([float(v) for v in body.split()]).reshape(-1, 3)
-            diff = float(np.abs(vtu - u[:, :3]).max())
+        diff = float(np.abs(vtu_displacement(out_base + ".vtu") - u[:, :3]).max()) if ok else float("inf")
         gates.check(diff <= 1e-12 * float(np.abs(u[:, :3]).max()),
                     f"cli {name}: .vtu displacements - library solve of the same files: max {diff:.3e}")
         lines = res.stdout.strip().splitlines()
@@ -2055,6 +2103,420 @@ def cli_phase(gates, device="cuda"):
         rows.append({"route": name, "returncode": res.returncode, "seconds": secs, "max_abs_diff": diff,
                      "bitwise_equal": diff == 0.0, "stdout": lines[-4:], "stderr": res.stderr[-2000:]})
     return {"meshgen_s": gen_s, "runs": rows}
+
+
+# ----------------------------------------------------------------------
+# phase 10: unstructured meshes
+# ----------------------------------------------------------------------
+
+
+def unstructured_plate(n, seed):
+    """The n^2 Test-G quad plate with its nodes randomly renumbered
+    (test_amg_million_dof's mesh at n = 416, seed 1): the mesh, its forces
+    and the new id of the centre node."""
+    from fem_shell_tpu_torch.mesh import permute_nodes
+
+    mesh, rows, fac = plate("q", n)
+    perm = np.random.default_rng(seed).permutation(mesh.n_nodes)
+    centre = int(np.nonzero(perm == mesh.n_nodes // 2)[0][0])
+    return permute_nodes(mesh, perm), (rows * fac)[perm], centre
+
+
+class PlainElementCounter:
+    """Counts calls of the plain element math (ops/elements.py and the
+    element kernel's plain version) while active: on a CUDA path it must
+    stay zero."""
+
+    NAMES = ("tri_shell_stiffness", "quad_shell_stiffness", "batched_tri_stiffness",
+             "batched_quad_stiffness", "elem_stiffness_plain")
+
+    def __enter__(self):
+        from fem_shell_tpu_torch.ops import elem_stiffness as es_mod, elements as el_mod
+
+        self.calls = 0
+        self.saved = []
+        for mod in (el_mod, es_mod):
+            for name in self.NAMES:
+                if hasattr(mod, name):
+                    fn = getattr(mod, name)
+                    self.saved.append((mod, name, fn))
+
+                    def counted(*a, _fn=fn, **kw):
+                        self.calls += 1
+                        return _fn(*a, **kw)
+
+                    setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def n_chunks(n_elem, chunk=16384):
+    return -(-n_elem // chunk)
+
+
+def product_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def gather_assembly_phase(gates, mesh, bandwidth, device="cuda"):
+    """10(a): LargeShellSystem(reorder="rcm").assemble() of the permuted
+    plate (gather mode, AMG's fine operator) on the card: the element kernel
+    once per chunk, no plain element math, two assemblies bitwise equal,
+    against the same assembly with the plain element math on the card; the
+    gather-mode matvec timed against its bytes bound."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness_plain
+    from fem_shell_tpu_torch.ops.soa import soa_matvec
+
+    sys_ = LargeShellSystem(mesh, Material(0.3, 1e7, 0.5), reorder="rcm", device=device)
+    tag = f"gather assembly q{int(round(np.sqrt(mesh.n_elems)))} (permuted, RCM)"
+    sys_._passes  # the host pass tables, built once per system
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    with PlainElementCounter() as plain:
+        t0 = time.perf_counter()
+        v = sys_.assemble()
+        torch.cuda.synchronize()
+        asm_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    v2 = sys_.assemble()
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    same = torch.equal(v, v2)
+    del v2
+    t0 = time.perf_counter()
+    ref = sys_.assemble(element_fn=elem_stiffness_plain)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    scale = float(ref.abs().max())
+    err = float((v - ref).abs().max()) / scale
+    del ref
+    want = n_chunks(len(mesh.quad))
+    k, npad = v.shape[1], v.shape[2]
+    gates.check(sys_.offsets is None and k == 9 and bool(torch.isfinite(v).all()) and err <= GRID_GATE,
+                f"{tag}: gather mode K={k} Npad={npad}, max|A - A_plain|/max|A| = {err:.3e} <= {GRID_GATE:.0e}")
+    gates.check(same, f"{tag}: two assemblies bitwise equal")
+    gates.check(launches["elem4"] == want and launches["elem3"] == 0 and plain.calls == 0,
+                f"{tag}: elem_stiffness<4> launches {launches['elem4']} == {want} chunks, plain element "
+                f"math calls {plain.calls} == 0")
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(6, npad))).to(device)
+    mv_ms = cuda_ms(lambda: soa_matvec(v, x, sys_.adj_t), 20)
+    mv_bytes = product_bytes(v, sys_.adj_t, x, x)
+    rec = {"case": tag, "k": k, "npad": npad, "rel_err": err, "bitwise_equal": same, "assemble_s": asm_s,
+           "again_s": again_s, "plain_s": plain_s, "peak_bytes": peak, "launches": launches,
+           "expected_elem4": want, "plain_calls": plain.calls,
+           "gather_matvec": {"ms": mv_ms, "bytes": mv_bytes, "bound_ms": mv_bytes / bandwidth * 1e3}}
+    print(f"  {tag}: K={k} Npad={npad} rel_err={err:.2e} bitwise={same} assemble_s={asm_s:.3f} "
+          f"again={again_s:.3f} plain={plain_s:.3f} peak={peak} elem4 {launches['elem4']}/{want} "
+          f"plain calls {plain.calls}; gather matvec {mv_ms:.4f} ms (bound "
+          f"{rec['gather_matvec']['bound_ms']:.4f} ms)", flush=True)
+    del v, x, sys_
+    torch.cuda.empty_cache()
+    return rec
+
+
+def amg_products(amg, bandwidth):
+    """CUDA-event times of the cycle's products on the fine level against
+    their bytes bounds (each input read once, each output written once):
+    the block-ELL matvec, the smoother's block apply, restriction P^T r and
+    prolongation P e_c; and one whole cycle."""
+    from fem_shell_tpu_torch.amg import _block_apply, amg_cycle
+    from fem_shell_tpu_torch.ops.assemble import ell_matvec
+
+    dl, dc = amg.levels[0], amg.levels[1]
+    n, dt = dl.blocks.shape[0], dl.blocks.dtype
+    g = torch.Generator(device=dl.blocks.device).manual_seed(5)
+    r = torch.randn((n, 6), generator=g, device=dl.blocks.device, dtype=dt)
+    ec = torch.randn((dl.n_coarse, 6), generator=g, device=dl.blocks.device, dtype=dt)
+
+    def restrict():
+        contrib = (dl.pblk * r[:, None, :, None]).sum(dim=2).reshape(-1, 6)
+        return torch.cat([contrib, contrib.new_zeros((1, 6))])[dl.rsrc].sum(dim=1)
+
+    rc = restrict()
+    cases = {
+        "ell_matvec": (lambda: ell_matvec(dl.blocks, dl.adj, r), (dl.blocks, dl.adj, r, r)),
+        "block_apply": (lambda: _block_apply(dl.inv_diag, r), (dl.inv_diag, r, r)),
+        "restrict": (restrict, (dl.pblk, r, dl.rsrc, rc)),
+        "prolong": (lambda: ell_matvec(dl.pblk, dl.pcol, ec), (dl.pblk, dl.pcol, ec, r)),
+    }
+    out = {}
+    for name, (fn, ts) in cases.items():
+        ms = cuda_ms(fn, 20)
+        nbytes = product_bytes(*ts)
+        out[name] = {"ms": ms, "bytes": nbytes, "bound_ms": nbytes / bandwidth * 1e3}
+    out["cycle_ms"] = cuda_ms(lambda: amg_cycle(amg.levels, r, amg.nu_smooth, amg.cycle), 5)
+    out["dtype"] = str(dt)[6:]
+    out["shapes"] = {"n": n, "k": int(dl.adj.shape[1]), "pk": int(dl.pcol.shape[1]),
+                     "n_coarse": dl.n_coarse, "rk": int(dl.rsrc.shape[1])}
+    return out
+
+
+def amg_scale_phase(gates, mesh, forces, centre, bandwidth, device="cuda"):
+    """10(b): AMGShellSystem(mesh, mat) (W cycle, RCM, f64) and
+    solve(rtol=1e-10, maxiter=200) twice on the 1,043,334-DOF permuted
+    plate; the constructor timed apart with its set-up stages."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.amg import AMGShellSystem
+
+    tag = f"AMG f64 q{int(round(np.sqrt(mesh.n_elems)))} ({mesh.n_dofs} DOF)"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with PlainElementCounter() as plain:
+        t0 = time.perf_counter()
+        amg = AMGShellSystem(mesh, Material(0.3, 1e7, 0.5), device=device)
+        torch.cuda.synchronize()
+        ctor_s = time.perf_counter() - t0
+    ctor_launches = read_launches()
+    ctor_peak = torch.cuda.max_memory_allocated()
+    print(f"  {tag}: constructor {ctor_s:.2f} s, set-up stages "
+          + " ".join(f"{k}={v:.3f}" for k, v in amg.setup_timings.items())
+          + f"; levels {[l.n for l in amg.h_levels]}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    u = amg.solve(forces, rtol=1e-10, maxiter=200)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    it, res = amg.last_iters, amg.last_residual
+    t0 = time.perf_counter()
+    again = amg.solve(forces, rtol=1e-10, maxiter=200)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    same = torch.equal(again, u)
+    w = float(u[centre, 2])
+    e_k = abs(w - KIRCHHOFF) / KIRCHHOFF
+    jax_it, jax_w = JAX_AMG_416
+    want = n_chunks(len(mesh.quad))
+    gates.check(tuple(u.shape) == (mesh.n_nodes, 6) and bool(torch.isfinite(u).all()) and res <= 1e-10,
+                f"{tag}: finite [{mesh.n_nodes}, 6], relative residual {res:.2e} <= 1e-10")
+    gates.check(it < 100 and abs(it - jax_it) <= 2,
+                f"{tag}: {it} iterations < 100 and within 2 of the JAX package's {jax_it}")
+    gates.check(e_k < 1e-3, f"{tag}: centre w {w:.17g} within 1e-3 of {KIRCHHOFF} ({e_k:.2e}; JAX {jax_w})")
+    gates.check(same, f"{tag}: two solves bitwise equal")
+    gates.check(ctor_launches["elem4"] == want and plain.calls == 0,
+                f"{tag}: fine assembly on the card, elem_stiffness<4> launches {ctor_launches['elem4']} == "
+                f"{want} chunks, plain element math calls {plain.calls} == 0")
+    prof = device_profile(lambda: amg.solve(forces, rtol=1e-10, maxiter=5))
+    products = amg_products(amg, bandwidth)
+    rec = {"case": tag, "levels": [l.n for l in amg.h_levels], "k": [int(l.adj.shape[1]) for l in amg.h_levels],
+           "iters": it, "jax_iters": jax_it, "residual": res, "center_w": w, "jax_center_w": jax_w,
+           "rel_err_kirchhoff": e_k, "ctor_s": ctor_s, "setup_timings": dict(amg.setup_timings),
+           "solve_s": [solve_s, again_s], "s_per_iter": solve_s / max(it, 1), "bitwise_repeat": same,
+           "ctor_launches": ctor_launches, "launches": launches, "ctor_peak_bytes": ctor_peak,
+           "peak_mem_bytes": peak, "profile_5_iters": prof, "products": products}
+    print(f"  {tag}: iters={it} (JAX {jax_it}) residual={res:.2e} w={w:.17g} solve_s={solve_s:.3f},"
+          f"{again_s:.3f} s/iter={rec['s_per_iter'] * 1e3:.2f} ms bitwise={same} peak={peak} "
+          f"ctor_peak={ctor_peak}", flush=True)
+    print(f"  {tag} profile (5 iterations): wall_ms={prof['wall_ms']:.1f} "
+          f"device_busy_ms={prof['device_busy_ms']:.1f} idle_share={prof['idle_share']}", flush=True)
+    for row in prof["top"]:
+        print(f"    {row['ms']:9.3f} ms {row['count']:6d}x {row['kernel']}", flush=True)
+    for name in ("ell_matvec", "block_apply", "restrict", "prolong"):
+        p = products[name]
+        print(f"  {tag} {name}: {p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms ({p['bytes']} B)", flush=True)
+    print(f"  {tag} one cycle: {products['cycle_ms']:.3f} ms; shapes {products['shapes']}", flush=True)
+    del amg
+    torch.cuda.empty_cache()
+    return rec, u
+
+
+def amg_refined_phase(gates, mesh, forces, centre, u64, bandwidth, device="cuda"):
+    """10(c): the production setting (--precond amg --refined):
+    AMGShellSystem(mesh, mat, dtype=float32, df=True).solve_df_refined(
+    rtol=1e-9) on the same plate."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.amg import AMGShellSystem
+
+    tag = f"AMG f32 df refined q{int(round(np.sqrt(mesh.n_elems)))}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    amg = AMGShellSystem(mesh, Material(0.3, 1e7, 0.5), dtype=torch.float32, df=True, device=device)
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    ctor_launches = read_launches()
+    print(f"  {tag}: constructor {ctor_s:.2f} s, set-up stages "
+          + " ".join(f"{k}={v:.3f}" for k, v in amg.setup_timings.items()), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u = amg.solve_df_refined(forces, rtol=1e-9)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist, inner = amg.refine_history, amg.refine_inner_iters
+    w = float(u[centre, 2])
+    e_k = abs(w - KIRCHHOFF) / KIRCHHOFF
+    du = float((u - u64).abs().max()) / float(u64.abs().max())
+    gates.check(bool(np.all(np.isfinite(hist))) and amg.last_residual < 1e-9 and bool(torch.isfinite(u).all()),
+                f"{tag}: final true residual {amg.last_residual:.2e} < 1e-9, history {hist} finite")
+    gates.check(e_k < 1e-3, f"{tag}: centre w {w:.17g} within 1e-3 of {KIRCHHOFF} ({e_k:.2e})")
+    gates.check(du <= 1e-6, f"{tag}: max|u - u_f64| / max|u_f64| = {du:.2e} <= 1e-6")
+    gates.check(ctor_launches["elem4"] == n_chunks(len(mesh.quad)),
+                f"{tag}: elem_stiffness<4> launches {ctor_launches['elem4']} in the constructor")
+    products = amg_products(amg, bandwidth)
+    rec = {"case": tag, "levels": [l.n for l in amg.h_levels], "ctor_s": ctor_s,
+           "setup_timings": dict(amg.setup_timings), "solve_s": solve_s, "iters": amg.last_iters,
+           "inner_iters": inner, "refine_history": hist, "center_w": w, "rel_err_kirchhoff": e_k,
+           "rel_diff_f64": du, "ctor_launches": ctor_launches, "peak_mem_bytes": peak, "products": products}
+    print(f"  {tag}: inner iters {inner} history {hist} w={w:.17g} du={du:.2e} solve_s={solve_s:.3f} "
+          f"peak={peak}", flush=True)
+    print(f"  {tag} f32 cycle: {products['cycle_ms']:.3f} ms; matvec {products['ell_matvec']['ms']:.4f} ms "
+          f"(bound {products['ell_matvec']['bound_ms']:.4f})", flush=True)
+    del amg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def large_routes_phase(gates, device="cuda"):
+    """10(d): LargeShellSystem's routes. The Test-E I-beam with RCM and
+    block-Jacobi against ShellSystem; solve_df_refined on a permuted
+    (gather mode) and an unpermuted (stencil mode, stencil_spmv<double> and
+    stencil_resid_dd<double>) 64^2 plate against ShellSystem f64; the
+    I-beam refined twice through AMG against the f64 Jacobi-PCG
+    LargeShellSystem."""
+    from fem_shell_tpu_torch import Material, ShellSystem
+    from fem_shell_tpu_torch.amg import AMGShellSystem
+    from fem_shell_tpu_torch.data import mesh_from_tris, test_e as E
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.mesh import refine_uniform
+
+    rows = []
+    mat_e = Material(nu=0.25, em=10000, thickness=0.25)
+    ibeam = mesh_from_tris(E.COORDS, E.TRIS, E.BOUNDARY_SIDES)
+    ref = ShellSystem(ibeam, mat_e, device=device).solve(E.FORCES)
+    reset_launches()
+    big = LargeShellSystem(ibeam, mat_e, reorder="rcm", device=device)
+    u = big.solve(E.FORCES, rtol=1e-12, precond="block_jacobi")
+    launches = read_launches()
+    err = float((u - ref).abs().max()) / float(ref.abs().max())
+    tag = f"I-beam RCM block-Jacobi ({'stencil' if big.offsets is not None else 'gather'} mode)"
+    gates.check(err <= 1e-12 and launches["elem3"] == 1,
+                f"{tag}: {big.last_cg.iters} iterations, max|u - u_ShellSystem|/max = {err:.2e} <= 1e-12, "
+                f"elem_stiffness<3> launches {launches['elem3']} == 1")
+    rows.append({"case": tag, "iters": big.last_cg.iters, "rel_err": err, "launches": launches})
+    print(f"  {tag}: iters={big.last_cg.iters} rel_err={err:.2e} launches={launches}", flush=True)
+
+    for permute in (True, False):
+        if permute:
+            mesh, forces, _ = unstructured_plate(64, 3)
+        else:
+            mesh, rows_, fac = plate("q", 64)
+            forces = rows_ * fac
+        ref = ShellSystem(mesh, Material(0.3, 1e7, 0.5), device=device).solve(forces, rtol=1e-13)
+        big = LargeShellSystem(mesh, Material(0.3, 1e7, 0.5), device=device)
+        reset_launches()
+        t0 = time.perf_counter()
+        u = big.solve_df_refined(forces, rtol=1e-11, inner_rtol=1e-6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        err = float((u - ref).abs().max()) / float(ref.abs().max())
+        inner, hist = big.refine_inner_iters, big.refine_history
+        stencil = big.offsets is not None
+        tag = f"LargeShellSystem.solve_df_refined q64 {'stencil' if stencil else 'gather'} mode"
+        want64 = sum(inner) + len(hist) if stencil else 0
+        want_resid = len(hist) if stencil else 0
+        gates.check(err <= 1e-8 and bool(np.all(np.isfinite(hist))),
+                    f"{tag}: max|u - u_ShellSystem|/max = {err:.2e} <= 1e-8, history {hist}")
+        gates.check(launches["spmv_f64"] == want64 and launches["resid"] == want_resid
+                    and launches["elem4"] == 1,
+                    f"{tag}: stencil_spmv<double> {launches['spmv_f64']} == {want64} ({sum(inner)} CG + "
+                    f"{len(hist)} residuals), stencil_resid_dd<double> {launches['resid']} == {want_resid}, "
+                    f"elem_stiffness<4> {launches['elem4']} == 1")
+        rows.append({"case": tag, "inner_iters": inner, "refine_history": hist, "rel_err": err,
+                     "seconds": secs, "launches": launches})
+        print(f"  {tag}: inner={inner} history={hist} rel_err={err:.2e} {secs:.3f} s launches={launches}",
+              flush=True)
+
+    fine = refine_uniform(ibeam, 2)
+    f = np.zeros((fine.n_nodes, 6))
+    f[: ibeam.n_nodes] = E.FORCES
+    reset_launches()
+    amg = AMGShellSystem(fine, mat_e, device=device)
+    u = amg.solve(f, rtol=1e-10, maxiter=300)
+    launches = read_launches()
+    jac = LargeShellSystem(fine, mat_e, device=device)
+    u_ref = jac.solve(f, rtol=1e-12, maxiter=200000)
+    err = float((u - u_ref).abs().max()) / float(u_ref.abs().max())
+    tag = f"I-beam refined twice ({fine.n_elems} elements) through AMG"
+    gates.check(amg.last_residual < 1e-10 and amg.last_iters < 120 and err <= 1e-7,
+                f"{tag}: {amg.last_iters} iterations, residual {amg.last_residual:.2e}, max|u - u_JacobiPCG|/max "
+                f"= {err:.2e} <= 1e-7 (Jacobi-PCG {jac.last_cg.iters} iterations)")
+    rows.append({"case": tag, "iters": amg.last_iters, "jacobi_iters": jac.last_cg.iters, "rel_err": err,
+                 "launches": launches})
+    print(f"  {tag}: iters={amg.last_iters} jacobi={jac.last_cg.iters} rel_err={err:.2e}", flush=True)
+    return rows
+
+
+def unstructured_cli_phase(gates, device="cuda"):
+    """10(e): the solver CLI's unstructured routes in subprocesses on the
+    card, on a written 64^2 plate: --precond amg, --precond amg --refined,
+    --reorder rcm and --refined; the .vtu displacements equal to the
+    library calls' outputs on the same files."""
+    import os
+    import shutil
+
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.amg import AMGShellSystem
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.mesh import load_mesh_and_forces
+
+    work = OUT_DIR / "cli_unstructured"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    base = str(work / "plate")
+    gen = subprocess.run([sys.executable, "-m", "fem_shell_tpu_torch.meshgen"]
+                         + "q 64 64 0 0 10 10 0,0,0,0 300 2 1 z".split() + [base], cwd=work, env=env,
+                         capture_output=True, text=True, timeout=600)
+    gates.check(gen.returncode == 0, f"cli unstructured: meshgen exit {gen.returncode}")
+    mesh, forces = load_mesh_and_forces(base + ".xda")
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    library = {
+        "--precond amg": lambda: AMGShellSystem(mesh, mat, device=device).solve(
+            forces, rtol=1e-10, maxiter=20000),
+        "--precond amg --refined": lambda: AMGShellSystem(
+            mesh, mat, dtype=torch.float32, df=True, device=device).solve_df_refined(
+            forces, rtol=1e-10, inner_maxiter=20000),
+        "--reorder rcm": lambda: LargeShellSystem(mesh, mat, reorder="rcm", device=device).solve(
+            forces, rtol=1e-10, maxiter=20000, precond="block_jacobi"),
+        "--refined": lambda: LargeShellSystem(mesh, mat, device=device).solve_df_refined(
+            forces, rtol=1e-10, inner_maxiter=20000),
+    }
+    rows = []
+    for i, (route, lib) in enumerate(library.items()):
+        out_base = f"{base}_{i}"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "fem_shell_tpu_torch.utils.cli", "-nu", "0.3", "-e", "1e7",
+                              "-t", "0.5", "-mesh", base + ".xda", "-out", out_base] + route.split()
+                             + ([] if device == "cuda" else ["--device", device]),
+                             cwd=work, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        ok = res.returncode == 0 and os.path.exists(out_base + ".vtu")
+        gates.check(ok, f"cli {route}: exit {res.returncode}, .vtu written")
+        u = lib().cpu().numpy()
+        diff = float(np.abs(vtu_displacement(out_base + ".vtu") - u[:, :3]).max()) if ok else float("inf")
+        gates.check(diff <= 1e-12 * float(np.abs(u[:, :3]).max()),
+                    f"cli {route}: .vtu displacements - library call on the same files: max {diff:.3e}")
+        lines = res.stdout.strip().splitlines()
+        print(f"  cli {route}: rc={res.returncode} {secs:.2f} s, {lines[-3:] if lines else res.stderr[-500:]}",
+              flush=True)
+        rows.append({"route": route, "returncode": res.returncode, "seconds": secs, "max_abs_diff": diff,
+                     "stdout": lines[-4:], "stderr": res.stderr[-2000:]})
+    return rows
 
 
 def main() -> int:
@@ -2135,7 +2597,7 @@ def main() -> int:
     pair_runs += [class_solve_phase(gates, et, 64, golden=GOLDEN[et], gate_rel=1e-4, steady=False,
                                     pair=True) for et in ("q", "t")]
 
-    print("phase 7: grid assembly against the index_add_ assembly (1024x1024 tri and quad)", flush=True)
+    print("phase 7: grid assembly against the scatter assembly (1024x1024 tri and quad)", flush=True)
     grids = grid_phase(gates, 1024)
 
     print("phase 8: stand-alone solver (ShellSystem goldens A-G, MultigridShellSystem.solve, CLIs)", flush=True)
@@ -2154,6 +2616,17 @@ def main() -> int:
     fused_gal = galerkin_fused_phase(gates)
     roof_pairs = [roof_pair_phase(gates, n, want) for n, want in ROOF_PAIR_CPU.items()]
     roof_runs = [roof] + cycles + fused_gal + roof_pairs
+
+    print("phase 10: unstructured meshes (gather-mode assembly, AMG at 1,043,334 DOF, LargeShellSystem "
+          "routes, CLIs)", flush=True)
+    umesh, uforces, ucentre = unstructured_plate(416, 1)
+    gather = gather_assembly_phase(gates, umesh, bandwidth)
+    amg64, u64 = amg_scale_phase(gates, umesh, uforces, ucentre, bandwidth)
+    amg32 = amg_refined_phase(gates, umesh, uforces, ucentre, u64, bandwidth)
+    del u64, umesh
+    large_routes = large_routes_phase(gates)
+    ucli = unstructured_cli_phase(gates)
+    unstructured = [gather, amg64, amg32] + large_routes
 
     entries = []
     for dtype, meta in KERNELS.items():
@@ -2195,6 +2668,7 @@ def main() -> int:
         key = "spmv_f32" if "float" in entry["name"] else "spmv_f64"
         entry["launches"] += sum(r["launches"][key] for r in class_runs + pair_runs + mg_runs)
         entry["launches"] += sum(r["launches_total"][key] for r in roof_runs)
+        entry["launches"] += sum(r["launches"][key] for r in large_routes)  # LargeShellSystem's stencil mode
         if key == "spmv_f64":  # and every f64 V-cycle level, held against the plain version in phases 8-9
             checks = [l for r in mg_runs + [roof] for l in r["plain_checks"]["levels"]]
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [l["max_abs_err"] for l in checks])
@@ -2204,7 +2678,7 @@ def main() -> int:
         at = [r for r in mine if r["shape"] == "t1024"][0]
         entries.append({
             "name": meta["name"], "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": (sum(r["launches"][meta["count"]] for r in pair_runs)
+            "launches": (sum(r["launches"][meta["count"]] for r in pair_runs + large_routes)
                          + sum(r["launches_total"][meta["count"]] for r in roof_runs)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["rel_err"] for r in mine),
@@ -2225,7 +2699,9 @@ def main() -> int:
             "launches": (sum(r["launches"][key] for r in runs + class_runs + pair_runs + grids + systems)
                          + sum(r["ctor_launches"][key] for r in mg_runs) + golden_launches[key]
                          + sum(r["launches"][key] for r in roof_goldens)
-                         + sum(r["launches_total"][key] for r in roof_runs)),
+                         + sum(r["launches_total"][key] for r in roof_runs)
+                         + gather["launches"][key] + amg64["ctor_launches"][key]
+                         + amg32["ctor_launches"][key] + sum(r["launches"][key] for r in large_routes)),
             "max_abs_err": max(r["max_abs_err"] for r in mine + cases),
             "max_rel_err": max(r["rel_err"] for r in mine + cases),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -2245,7 +2721,8 @@ def main() -> int:
          "solves": runs, "class_solves": class_runs, "pair_solves": pair_runs, "grid": grids,
          "elem_cases": ecases, "goldens": goldens, "systems": systems, "ell_matvec_scale": ell_scale,
          "mg_solves": mg_runs, "cli": clis, "roof_goldens": roof_goldens, "roof": roof,
-         "roof_cycles": cycles, "galerkin_fused": fused_gal, "roof_pairs": roof_pairs},
+         "roof_cycles": cycles, "galerkin_fused": fused_gal, "roof_pairs": roof_pairs,
+         "unstructured": unstructured, "unstructured_cli": ucli},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

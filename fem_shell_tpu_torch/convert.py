@@ -4,8 +4,9 @@ The functions take the JAX package's objects (or anything with the same
 fields) and read every array through ``numpy.asarray``, so this module —
 like the whole port — imports nothing of JAX. With them a test feeds the
 same mesh, material, assembled operator and multigrid levels to both
-packages, and the same exact-stencil tables and class operator, so the
-kernel-and-plain parity stands apart from the longdouble table build.
+packages, the same exact-stencil tables and class operator, so the
+kernel-and-plain parity stands apart from the longdouble table build, and
+the same AMG hierarchy, so the port's cycle runs on the JAX set-up.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from fem_shell_tpu_torch.amg import _DeviceLevel, _HostLevel, device_levels
 from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.materials import Material
 from fem_shell_tpu_torch.mesh import ShellMesh
@@ -125,3 +127,16 @@ def class_parts_from_jax(cp, device=None) -> ClassParts:
         (cp.bl_h, cp.bl_l, cp.bl_e), (cp.br_h, cp.br_l, cp.br_e))]
     return class_parts_of(a(cp.ih), a(cp.il), a(cp.i2), bands, cp.offs2d, cp.nyp, cp.nxp,
                           cp.npad, resolve_device(device))
+
+
+def amg_from_jax(amg, device=None) -> List[_DeviceLevel]:
+    """A JAX-package ``AMGShellSystem``'s host levels and transfers as the
+    port's device levels (``amg.device_levels``) in the JAX system's dtype:
+    the same blocks, P and coarsest factor, the damping from the same
+    seeded power iteration."""
+    h_levels = [_HostLevel(np.array(l.adj, np.int64), np.array(l.blocks, np.float64), int(l.n))
+                for l in amg.h_levels]  # owned, writable copies
+    transfers = [(np.array(pcol, np.int64), np.array(pblk, np.float64), int(nc))
+                 for pcol, pblk, nc in amg.transfers]
+    dtype = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}[np.dtype(amg.dtype)]
+    return device_levels(h_levels, transfers, dtype, resolve_device(device))

@@ -1,18 +1,40 @@
-"""LargeShellSystem — the SoA stencil operator of one mesh: pattern,
-device tables and f64 assembly. Port of ``fem_shell_tpu/large.py``
-(``__init__``, ``_tables``, ``_assemble_impl``, ``assemble``,
-``assemble_df``).
+"""LargeShellSystem — the SoA operator of one mesh, in stencil or gather
+mode, with its f64 assembly and its own solves. Port of
+``fem_shell_tpu/large.py``.
 
-Two f64 assemblies are ported: the general one (element kernels on
-plain coordinates, a chunked ``index_add_`` scatter and Dirichlet
-elimination; ``assemble``), and on a structured grid the scatter-free
-grid pipeline (``ops/assemble_grid.py``, the element kernel
-``csrc/elem_stiffness.cu`` on the card), which ``assemble_df`` picks from
-``GRID_MIN_ELEMENTS`` elements. Native f64 takes the place of the JAX
-package's two-float32 pair, so ``assemble_df`` returns one f64 operator.
-Another dtype raises NotImplementedError. The JAX package's f32
-exact-geometry path, its strip-df pipeline, RCM reordering and its own
-Jacobi/block-Jacobi ``solve`` are not ported yet (ROADMAP.md, Queue 1).
+- ``reorder="rcm"`` renumbers the nodes by reverse Cuthill-McKee before
+  the operator is built; forces go in and solutions come out in the
+  original numbering.
+- ``assemble``: the element kernel ``csrc/elem_stiffness.cu`` (its plain
+  version on the CPU), the deterministic pass-by-pass scatter of
+  ``ops/soa.py`` and Dirichlet elimination, in either mode; two
+  assemblies agree bit for bit on any device. ``assemble_df`` picks, on a
+  structured grid of at least ``GRID_MIN_ELEMENTS`` elements, the
+  scatter-free grid pipeline (``ops/assemble_grid.py``). Native f64 takes
+  the place of the JAX package's two-float32 pair, so ``assemble_df``
+  returns one f64 operator.
+- ``solve``: PCG with Jacobi or 6x6 block-Jacobi (``ops/blockprec.py``);
+  the matvec is ``ops/stencil_spmv.stencil_spmv`` in f64 in stencil mode
+  and ``ops/soa.soa_matvec`` (PyTorch) in gather mode.
+- ``solve_df``: the JAX package's df CG as a native f64 CG on the
+  symmetrically diagonal-scaled operator D^-1/2 A D^-1/2 with the identity
+  preconditioner.
+- ``solve_df_refined``: that CG plus iterative refinement against the
+  true residual. The JAX package's correction term E = A64 - (hi + lo) is
+  zero here, because the stored operator is A64 itself, so the true
+  residual is b - A64 x on the scaled operator, summed in double-double:
+  ``ops/stencil_resid.stencil_resid_dd`` (the kernel on the card) in
+  stencil mode, ``ops/soa.gather_resid_dd`` (PyTorch) in gather mode. The
+  iterate is carried as a double-double x_hi + x_lo, as the JAX package
+  carries a df pair, so the loop is not held at the residual of x rounded
+  to f64 (~1e-7 of ||b|| on the 1M-DOF plate).
+
+Not ported (ROADMAP.md, Queue 1 item 6): ``dtype=torch.float32`` and
+``exact_geom=True`` (the exact-geometry f32 assembly and its df solve)
+raise NotImplementedError; the strip-df pipeline (``assemble_soa_df``,
+``build_strip_plan``, ``free_strip_cache``) has no counterpart, since
+native f64 needs no strips (``assemble_df(method="strip")`` is
+``assemble()``).
 """
 from __future__ import annotations
 
@@ -26,12 +48,28 @@ from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.materials import Material
 from fem_shell_tpu_torch.mesh import ShellMesh
 from fem_shell_tpu_torch.ops.assemble_grid import assemble_grid
-from fem_shell_tpu_torch.ops.soa import apply_bc_soa, assemble_soa, build_soa_pattern, soa_diagonal
+from fem_shell_tpu_torch.ops.blockprec import cholesky6, cholesky6_solve
+from fem_shell_tpu_torch.ops.soa import (
+    _col_values,
+    apply_bc_soa,
+    assemble_soa,
+    build_soa_pattern,
+    gather_resid_dd,
+    scatter_passes,
+    soa_diagonal,
+    soa_matvec,
+    soa_self_blocks,
+)
+from fem_shell_tpu_torch.ops.stencil_resid import dd_add, stencil_resid_dd
+from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+from fem_shell_tpu_torch.solver import pcg
 
 # from this many elements a structured grid is assembled by the grid
 # pipeline (assemble_df "auto"), and a multigrid hierarchy over such a
 # fine mesh assembles every level that way (mg.py)
 GRID_MIN_ELEMENTS = 65536
+
+_UNPORTED = "not ported yet (ROADMAP.md Queue 1 item 6)"
 
 
 class LargeShellSystem:
@@ -40,19 +78,34 @@ class LargeShellSystem:
         mesh: ShellMesh,
         material: Material,
         dtype=torch.float64,
+        k_max: Optional[int] = None,
         chunk: int = 16384,
+        exact_geom: Optional[bool] = None,
         dirichlet_mask: Optional[np.ndarray] = None,
+        reorder: Optional[str] = None,
         device=None,
     ):
-        """``dirichlet_mask`` overrides the mesh's own BC mask (multigrid
-        coarse levels pass subsampled fine masks). ``device`` defaults to
-        CUDA; pass ``"cpu"`` to run on the host."""
+        """``k_max`` pads the neighbour slots (and forces gather mode when the
+        mesh has more distinct offsets). ``dirichlet_mask`` overrides the
+        mesh's own BC mask (multigrid coarse levels pass subsampled fine
+        masks). ``reorder="rcm"`` renumbers the nodes first. ``device``
+        defaults to CUDA; pass ``"cpu"`` to run on the host."""
         if dtype != torch.float64:
-            raise NotImplementedError(
-                "only the f64 assembly is ported; the f32 exact-geometry path is "
-                "listed in ROADMAP.md"
-            )
+            raise NotImplementedError(f"LargeShellSystem(dtype={dtype}): the f32 exact-geometry "
+                                      f"assembly and its df solve are {_UNPORTED}")
+        if exact_geom:
+            raise NotImplementedError(f"exact_geom=True (the f32 exact-geometry assembly) is {_UNPORTED}")
         self.device = resolve_device(device)
+        self._order = None
+        if reorder == "rcm":
+            from fem_shell_tpu_torch.mesh import permute_nodes, rcm_order
+
+            self._order = rcm_order(mesh)
+            if dirichlet_mask is not None:
+                dirichlet_mask = np.asarray(dirichlet_mask)[self._order]
+            mesh = permute_nodes(mesh, self._order)
+        elif reorder is not None:
+            raise ValueError(f"unknown reorder {reorder!r} (use 'rcm' or None)")
         self.mesh = mesh
         self.material = material
         self.dtype = dtype
@@ -62,9 +115,11 @@ class LargeShellSystem:
         self.dp = torch.as_tensor(dp, dtype=dtype, device=self.device)
         self.thickness = material.thickness
 
-        self.pattern = build_soa_pattern(mesh)
+        self.pattern = build_soa_pattern(mesh, k_max=k_max)
         p = self.pattern
-        self.offsets = p.offsets  # host-side ints
+        self.offsets = p.offsets  # host-side ints (stencil mode) or None
+        self.adj_t = None if p.adj_t is None else torch.as_tensor(p.adj_t, dtype=torch.int64,
+                                                                  device=self.device)
 
         free = np.ones((p.n_pad, 6), dtype=np.float64)
         mask = mesh.dirichlet_mask() if dirichlet_mask is None else np.asarray(dirichlet_mask, bool)
@@ -73,6 +128,7 @@ class LargeShellSystem:
         self.free_t = torch.as_tensor(free.T.copy(), dtype=dtype, device=self.device)  # [6, Npad]
         self._tables_cache = None
         self._coords_cache = None
+        self._passes_cache = None
 
     @property
     def coords(self):
@@ -83,38 +139,43 @@ class LargeShellSystem:
     @property
     def _tables(self):
         if self._tables_cache is None:
-            p = self.pattern
-
             def idx(a):
                 return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
             self._tables_cache = {
                 "tri_conn": idx(self.mesh.tri),
                 "quad_conn": idx(self.mesh.quad),
-                "tri_slot": idx(p.tri_slot),
-                "quad_slot": idx(p.quad_slot),
                 "free_t": self.free_t,
+                "adj_t": self.adj_t,
             }
         return self._tables_cache
 
-    def _assemble_impl(self, coords, tables):
-        values = assemble_soa(
-            self.pattern,
-            coords,
-            tables["tri_conn"],
-            tables["quad_conn"],
-            tables["tri_slot"],
-            tables["quad_slot"],
-            self.dm,
-            self.dp,
-            self.thickness,
-            chunk=self.chunk,
-        )
-        return apply_bc_soa(values, tables["free_t"], offsets=self.offsets)
+    @property
+    def _passes(self):
+        """The scatter passes of both families at ``chunk``, on the device;
+        built on the host at the first assembly."""
+        if self._passes_cache is None:
+            def dev(passes):
+                return [(torch.as_tensor(src, device=self.device), torch.as_tensor(dest, device=self.device),
+                         bounds) for src, dest, bounds in passes]
 
-    def assemble(self):
-        """BC-eliminated operator values [36, K, Npad] in f64."""
-        return self._assemble_impl(self.coords, self._tables)
+            p = self.pattern
+            self._passes_cache = (dev(scatter_passes(p.tri_slot, self.chunk)),
+                                  dev(scatter_passes(p.quad_slot, self.chunk)))
+        return self._passes_cache
+
+    def _assemble_impl(self, coords, tables, element_fn=None):
+        tri_passes, quad_passes = self._passes
+        values = assemble_soa(self.pattern, coords, tables["tri_conn"], tables["quad_conn"], tri_passes,
+                              quad_passes, self.dm, self.dp, self.thickness, chunk=self.chunk,
+                              element_fn=element_fn)
+        return apply_bc_soa(values, tables["free_t"], offsets=self.offsets, adj_t=tables["adj_t"])
+
+    def assemble(self, element_fn=None):
+        """BC-eliminated operator values [36, K, Npad] in f64. ``element_fn``
+        replaces the element kernel's wrapper (a comparison passes
+        ``ops/elem_stiffness.elem_stiffness_plain``)."""
+        return self._assemble_impl(self.coords, self._tables, element_fn)
 
     @functools.cached_property
     def grid(self):
@@ -131,7 +192,8 @@ class LargeShellSystem:
         - ``grid``: the scatter-free structured-grid pipeline
           (``ops/assemble_grid.py``), ``max(1, strip_nodes // nxp)`` element
           rows per strip; ValueError off a structured grid.
-        - ``strip``: ``assemble()`` (chunked ``index_add_``).
+        - ``strip``: ``assemble()`` (the JAX package's strip-df pipeline is
+          not ported; native f64 needs no strips).
         - ``auto``: ``grid`` on a structured grid of at least
           ``GRID_MIN_ELEMENTS`` elements, else ``strip``. The JAX package
           also keeps the CPU on ``strip``, because its CPU compiler
@@ -139,7 +201,8 @@ class LargeShellSystem:
           hazard, so the port does not."""
         if method == "auto":
             n_elem = len(self.mesh.tri) + len(self.mesh.quad)
-            method = "grid" if n_elem >= GRID_MIN_ELEMENTS and self.grid is not None else "strip"
+            method = ("grid" if n_elem >= GRID_MIN_ELEMENTS and self.offsets is not None
+                      and self.grid is not None else "strip")
         if method == "grid":
             grid = self.grid
             if grid is None:
@@ -152,5 +215,129 @@ class LargeShellSystem:
             raise ValueError(f"unknown method {method!r}: 'auto', 'grid' or 'strip'")
         values = self.assemble()
         if with_diag:
-            return values, soa_diagonal(values, offsets=self.offsets)
+            return values, soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
         return values
+
+    # ------------------------------------------------------------------
+    # solves
+    # ------------------------------------------------------------------
+    def _matvec(self, values):
+        if self.offsets is not None:
+            offsets = self.offsets
+            return lambda x: stencil_spmv(values, x, offsets)
+        adj_t = self.adj_t
+        return lambda x: soa_matvec(values, x, adj_t)
+
+    def _forces_in(self, forces) -> torch.Tensor:
+        """[6, Npad] f64 device forces in the system's numbering, zero on
+        the padding."""
+        f = torch.as_tensor(forces, dtype=self.dtype).to(self.device)
+        if self._order is not None:
+            f = f[torch.as_tensor(self._order, device=self.device)]
+        p = self.pattern
+        out = torch.zeros((6, p.n_pad), dtype=self.dtype, device=self.device)
+        out[:, : p.n_nodes] = f.T
+        return out
+
+    def _solution_out(self, x_t) -> torch.Tensor:
+        """[n_nodes, 6] of a [6, Npad] vector, in the original numbering."""
+        return self.original_order(x_t[:, : self.pattern.n_nodes].T)
+
+    def original_order(self, u) -> torch.Tensor:
+        """A node-major [n_nodes, 6] field of the system's numbering in the
+        mesh's original numbering (the field itself without reordering)."""
+        if self._order is None:
+            return u.contiguous()
+        out = torch.empty_like(u)
+        out[torch.as_tensor(self._order, device=u.device)] = u
+        return out
+
+    def solve(self, forces, rtol: float = 1e-10, maxiter: int = 20000, precond: str = "jacobi"):
+        """Assemble, then PCG to ``rtol`` with ``precond`` "jacobi" or
+        "block_jacobi" (the 6x6 self blocks, Cholesky-factored once).
+        Returns the f64 displacements [n_nodes, 6] on the device in the
+        original numbering; sets ``last_cg``."""
+        values = self.assemble()
+        b = self._forces_in(forces) * self.free_t
+        if precond == "block_jacobi":
+            l_blocks = cholesky6(soa_self_blocks(values, offsets=self.offsets, adj_t=self.adj_t))
+            res = pcg(self._matvec(values), b, rtol=rtol, maxiter=maxiter,
+                      apply_prec=lambda r: cholesky6_solve(l_blocks, r.T).T.contiguous())
+        elif precond == "jacobi":
+            diag = soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
+            res = pcg(self._matvec(values), b, diag=diag, rtol=rtol, maxiter=maxiter)
+        else:
+            raise ValueError(f"unknown precond {precond!r}: 'jacobi' or 'block_jacobi'")
+        self.last_cg = res
+        return self._solution_out(res.x)
+
+    def _scaled(self):
+        """(S A S, s): the assembled operator symmetrically scaled by s =
+        diag(A)^-1/2 (1 where the diagonal is not positive), rows first,
+        as the JAX package scales it."""
+        values = self.assemble()
+        diag = soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
+        s = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))  # [6, Npad]
+        k, npad = values.shape[1], values.shape[2]
+        v4 = values.reshape(6, 6, k, npad) * s[:, None, None, :]
+        v4 = v4 * _col_values(s, self.offsets, self.adj_t)[None]
+        return v4.reshape(36, k, npad), s
+
+    def _cg_identity(self, values, b, rtol, maxiter):
+        """CG on the scaled operator with the identity preconditioner (the
+        JAX package's pcg_df with unit diagonal, in native f64)."""
+        return pcg(self._matvec(values), b, diag=torch.ones_like(b), rtol=rtol, maxiter=maxiter)
+
+    def solve_df(self, forces, rtol: float = 1e-10, maxiter: int = 20000):
+        """f64 CG on D^-1/2 A D^-1/2 (D^1/2 u) = D^-1/2 f, the identity as
+        preconditioner: Jacobi-PCG in exact arithmetic. Sets
+        ``last_iters`` and ``last_residual``; returns as ``solve``."""
+        values, s = self._scaled()
+        b = self._forces_in(forces) * (self.free_t != 0) * s
+        res = self._cg_identity(values, b, rtol, maxiter)
+        self.last_iters = int(res.iters)
+        self.last_residual = float(res.residual)
+        return self._solution_out(res.x * s)
+
+    def _true_residual(self, values, x_hi, x_lo, b):
+        """r = b - A (x_hi + x_lo) on the scaled operator and ||r|| / ||b||:
+        the term of x_hi compensated, that of x_lo (~eps |x_hi|) in f64."""
+        if self.offsets is not None:
+            r = stencil_resid_dd(values, x_hi, b, self.offsets)
+        else:
+            r = gather_resid_dd(values, x_hi, b, self.adj_t)
+        r = r - self._matvec(values)(x_lo)
+        return r, float(torch.sqrt(torch.sum(r * r)) / torch.sqrt(torch.sum(b * b)))
+
+    def solve_df_refined(self, forces, rtol: float = 1e-9, n_refine: int = 6, inner_rtol: float = 1e-5,
+                         inner_maxiter: int = 20000, verbose: bool = False):
+        """``solve_df``'s CG to ``inner_rtol`` plus iterative refinement on
+        the true residual (module docstring), on any mesh: the loop stops at
+        ``rtol``, on a non-finite residual, or when a pass improves the
+        residual by less than 10x (the floor). Sets ``last_iters`` (all inner
+        iterations), ``last_residual``, ``refine_history`` (true residual per
+        pass) and ``refine_inner_iters``; returns as ``solve``."""
+        values, s = self._scaled()
+        b = self._forces_in(forces) * (self.free_t != 0) * s
+        res = self._cg_identity(values, b, inner_rtol, inner_maxiter)
+        x_hi, x_lo = res.x, torch.zeros_like(res.x)
+        inner, hist = [int(res.iters)], []
+        for _ in range(n_refine):
+            r, rn = self._true_residual(values, x_hi, x_lo, b)
+            hist.append(rn)
+            if verbose:
+                print(f"  refine: true residual {rn:.3e} ({sum(inner)} inner iters)", flush=True)
+            if rn < rtol or not np.isfinite(rn):
+                break
+            # a healthy pass with inner_rtol=1e-5 contracts the true
+            # residual by orders of magnitude; under 10x is the floor
+            if len(hist) > 1 and rn > 0.1 * hist[-2]:
+                break
+            d = self._cg_identity(values, r, inner_rtol, inner_maxiter)
+            x_hi, x_lo = dd_add(x_hi, x_lo, d.x)
+            inner.append(int(d.iters))
+        self.last_iters = sum(inner)
+        self.last_residual = hist[-1] if hist else float("nan")
+        self.refine_history = hist
+        self.refine_inner_iters = inner
+        return self._solution_out((x_hi + x_lo) * s)

@@ -21,9 +21,12 @@ Boundary-condition semantics (fem-shell.cpp:87-120):
 - bc ids {1, 21}: "clamped"          -> constrain u, v, w, tx, ty, tz
 
 Output: ``write_xda`` and ``write_forces`` write the dialect meshGen
-writes, byte for byte as the JAX package's writers do. RCM reordering,
-uniform refinement, XDR and Gmsh input and output are not ported yet
-(ROADMAP.md, Queue 1).
+writes, byte for byte as the JAX package's writers do.
+
+Node reordering and refinement: ``rcm_order`` (reverse Cuthill-McKee,
+scipy's or a pure-numpy fallback), ``permute_nodes``, ``refine_uniform``
+and ``bandwidth``, element for element as the JAX package's. XDR and
+Gmsh input and output are not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -152,6 +155,153 @@ class ShellMesh:
                                          np.arange(n, dtype=np.int64) * (n + 1)]))
         cols = (keys % n).astype(np.int32)
         return np.split(cols, np.cumsum(np.bincount(keys // n, minlength=n))[:-1])
+
+
+
+# ----------------------------------------------------------------------
+# node reordering (bandwidth reduction) and uniform refinement
+# ----------------------------------------------------------------------
+
+
+def rcm_order(mesh: ShellMesh) -> np.ndarray:
+    """Reverse Cuthill-McKee node order: ``order[new] = old``. Uses
+    scipy.sparse.csgraph when available, else a pure-numpy BFS RCM (a
+    minimum-degree root, neighbours visited in degree order, reversed)."""
+    n = mesh.n_nodes
+    r, c = mesh.adjacency_coo()
+    try:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        g = coo_matrix((np.ones(len(r), np.int8), (r, c)), shape=(n, n)).tocsr()
+        return np.asarray(reverse_cuthill_mckee(g, symmetric_mode=True), dtype=np.int64)
+    except ImportError:  # pragma: no cover - scipy is installed wherever the port runs
+        pass
+    return _rcm_numpy(n, r, c)
+
+
+def _rcm_numpy(n: int, r: np.ndarray, c: np.ndarray) -> np.ndarray:
+    order_ind = np.lexsort((c, r))
+    rs, cs = r[order_ind], c[order_ind]
+    starts = np.searchsorted(rs, np.arange(n + 1))
+    deg = np.diff(starts)
+    visited = np.zeros(n, bool)
+    out = np.empty(n, np.int64)
+    pos = 0
+    while pos < n:
+        root = int(np.argmin(np.where(visited, n + 1, deg)))
+        queue = [root]
+        visited[root] = True
+        while queue:
+            v = queue.pop(0)
+            out[pos] = v
+            pos += 1
+            nbrs = cs[starts[v] : starts[v + 1]]
+            nbrs = np.unique(nbrs[~visited[nbrs]])
+            nbrs = nbrs[np.argsort(deg[nbrs], kind="stable")]
+            visited[nbrs] = True
+            queue.extend(int(x) for x in nbrs)
+    return out[::-1].copy()
+
+
+def permute_nodes(mesh: ShellMesh, order: np.ndarray) -> ShellMesh:
+    """Relabelled mesh with ``new node j = old node order[j]``. Boundary
+    side records are element-based and unaffected; nodal records relabel."""
+    n = mesh.n_nodes
+    order = np.asarray(order, np.int64)
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    conn = mesh.elem_conn.copy()
+    conn[conn >= 0] = rank[conn[conn >= 0]].astype(conn.dtype)
+    bnodes = mesh.boundary_nodes.copy()
+    if len(bnodes):
+        bnodes[:, 0] = rank[bnodes[:, 0]].astype(bnodes.dtype)
+    nmask = (None if mesh.node_dirichlet_mask is None
+             else np.asarray(mesh.node_dirichlet_mask, bool)[order])
+    return ShellMesh(mesh.coords[order], mesh.elem_types, conn, mesh.boundary_sides,
+                     bnodes, node_dirichlet_mask=nmask)
+
+
+def refine_uniform(mesh: ShellMesh, levels: int = 1) -> ShellMesh:
+    """Uniform midpoint refinement, ``levels`` times: every TRI3 splits
+    into 4 TRI3, every QUAD4 into 4 QUAD4 (edge midpoints and quad
+    centres). Boundary side records go to the two child sides along each
+    parent side; nodal records keep the original nodes and add the
+    midpoints of edges whose two ends carry the same bc id."""
+    m = mesh
+    for _ in range(levels):
+        m = _refine_once(m)
+    return m
+
+
+def _refine_once(mesh: ShellMesh) -> ShellMesh:
+    conn = mesh.elem_conn
+    types = mesh.elem_types
+    n = mesh.n_nodes
+
+    edges = []  # every element side, unique undirected edges below
+    for e in range(mesh.n_elems):
+        for a, b in (TRI_SIDES if types[e] == XDA_TRI3 else QUAD_SIDES):
+            edges.append((conn[e, a], conn[e, b]))
+    edges = np.asarray(edges, np.int64)
+    key = np.minimum(edges[:, 0], edges[:, 1]) * (n + 1) + np.maximum(edges[:, 0], edges[:, 1])
+    ukey = np.unique(key)
+    mid_of = {int(k): n + i for i, k in enumerate(ukey)}
+    ua = (ukey // (n + 1)).astype(np.int64)
+    ub = (ukey % (n + 1)).astype(np.int64)
+    mid_coords = 0.5 * (mesh.coords[ua] + mesh.coords[ub])
+
+    def mid(i, j):
+        i, j = int(i), int(j)
+        return mid_of[min(i, j) * (n + 1) + max(i, j)]
+
+    new_conn, new_types, centers = [], [], []
+    child_of = {}  # (parent element, slot) -> child element
+    for e in range(mesh.n_elems):
+        if types[e] == XDA_TRI3:
+            a, b, c = (int(v) for v in conn[e, :3])
+            d, ee, f = mid(a, b), mid(b, c), mid(c, a)
+            kids = [(a, d, f, -1), (d, b, ee, -1), (f, ee, c, -1), (d, ee, f, -1)]
+            tt = XDA_TRI3
+        else:
+            a, b, c, dd = (int(v) for v in conn[e])
+            ce = len(centers) + n + len(ukey)
+            centers.append(0.25 * (mesh.coords[[a, b, c, dd]].sum(axis=0)))
+            e0, f0, g0, h0 = mid(a, b), mid(b, c), mid(c, dd), mid(dd, a)
+            kids = [(a, e0, ce, h0), (e0, b, f0, ce), (ce, f0, c, g0), (h0, ce, g0, dd)]
+            tt = XDA_QUAD4
+        for slot, kid in enumerate(kids):
+            child_of[(e, slot)] = len(new_conn)
+            new_conn.append(kid)
+            new_types.append(tt)
+
+    coords = np.vstack([mesh.coords, mid_coords] + ([np.asarray(centers)] if centers else []))
+    bs = []  # parent side s -> (child s, side s) and (child (s+1) % ns, side s)
+    for e, s, bc in mesh.boundary_sides:
+        ns = 3 if types[e] == XDA_TRI3 else 4
+        bs.append((child_of[(int(e), int(s))], int(s), int(bc)))
+        bs.append((child_of[(int(e), (int(s) + 1) % ns)], int(s), int(bc)))
+    bs = np.asarray(bs, np.int32).reshape(-1, 3)
+
+    bn = mesh.boundary_nodes
+    if len(bn):
+        per_node = {}
+        for node, bc in bn:
+            per_node.setdefault(int(bc), set()).add(int(node))
+        extra = []
+        for bc, nodes in per_node.items():
+            for i, (ka, kb) in enumerate(zip(ua, ub)):
+                if int(ka) in nodes and int(kb) in nodes:
+                    extra.append((n + i, bc))
+        bn = np.vstack([bn, np.asarray(extra, np.int32).reshape(-1, 2)]) if extra else bn
+
+    return ShellMesh(coords, np.asarray(new_types, np.int32), np.asarray(new_conn, np.int32), bs, bn)
+
+
+def bandwidth(mesh: ShellMesh) -> int:
+    """Max |i - j| over coupled node pairs (0 for a point cloud)."""
+    r, c = mesh.adjacency_coo()
+    return int(np.abs(r.astype(np.int64) - c.astype(np.int64)).max()) if len(r) else 0
 
 
 _NODES_PER_TYPE = {XDA_TRI3: 3, XDA_QUAD4: 4}

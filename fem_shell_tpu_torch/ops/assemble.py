@@ -114,6 +114,13 @@ def _first_self(adj):
     return (torch.cumsum(is_self.to(torch.int32), dim=1) * is_self) == 1
 
 
+def ell_matvec(blocks, adj, x):
+    """y[i] = sum_k blocks[i, k] @ x[adj[i, k]] with blocks [N, K, 6, 6],
+    adj [N, K] and x [N', 6]: a gather and one batched 6x6 contraction."""
+    xg = x[adj]  # [N, K, 6]
+    return torch.matmul(blocks, xg.unsqueeze(-1)).squeeze(-1).sum(dim=1)
+
+
 @dataclasses.dataclass
 class BlockEllMatrix:
     """Assembled block-ELL operator: y = A @ x with x, y of shape [N, 6]."""
@@ -122,9 +129,8 @@ class BlockEllMatrix:
     adj: torch.Tensor  # [N, K] int64
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, 6] -> [N, 6]: a gather and one batched 6x6 contraction."""
-        xg = x[self.adj]  # [N, K, 6]
-        return torch.matmul(self.blocks, xg.unsqueeze(-1)).squeeze(-1).sum(dim=1)
+        """x [N, 6] -> [N, 6]."""
+        return ell_matvec(self.blocks, self.adj, x)
 
     def diagonal(self) -> torch.Tensor:
         """[N, 6] diagonal (Jacobi). Padding repeats the self id with zero

@@ -35,6 +35,15 @@ def _two_sum(a, b):
     return s, (a - (s - z)) + (b - z)
 
 
+def dd_add(hi, lo, d):
+    """(hi, lo) + d as a renormalised double-double: TwoSum of the high
+    parts, the low parts added to its error, then a fast TwoSum."""
+    s, e = _two_sum(hi, d)
+    e = e + lo
+    h = s + e
+    return h, e - (h - s)
+
+
 def _two_prod(a, b):
     """Dekker's TwoProd: p + e == a * b exactly (torch has no fma; eager
     ops are never contracted)."""
@@ -48,6 +57,18 @@ def _two_prod(a, b):
     return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
 
 
+def resid_dd(b, terms):
+    """b - sum of a * x over ``terms`` (pairs of broadcastable tensors) in
+    double-double: every product split exactly (TwoProd), the sum carried
+    as (s, c) from (b, 0) in the terms' order, rounded once."""
+    s, c = b.clone(), torch.zeros_like(b)
+    for a, x in terms:
+        p, e = _two_prod(a, x)
+        s, err = _two_sum(s, -p)
+        c = c + (err - e)
+    return s + c
+
+
 def stencil_resid_dd_plain(values, x, b, offsets: Sequence[int]):
     """r = b - A x in double-double, eager: the kernel's arithmetic term by
     term in its order (slot, then column). A target outside [0, Npad)
@@ -55,14 +76,8 @@ def stencil_resid_dd_plain(values, x, b, offsets: Sequence[int]):
     leave the sums unchanged."""
     k, npad = values.shape[1], values.shape[2]
     v4 = values.reshape(6, 6, k, npad)
-    s, c = b.clone(), torch.zeros_like(b)
-    for j, o in enumerate(offsets):
-        xs = torch.roll(x, -int(o), dims=1)
-        for bb in range(6):
-            p, e = _two_prod(v4[:, bb, j], xs[bb])
-            s, err = _two_sum(s, -p)
-            c = c + (err - e)
-    return s + c
+    xs = [torch.roll(x, -int(o), dims=1) for o in offsets]
+    return resid_dd(b, ((v4[:, bb, j], xs[j][bb]) for j in range(k) for bb in range(6)))
 
 
 def _check(values, x, b, offsets):

@@ -19,17 +19,25 @@ exit codes and output files:
   --method    pcg | dense (ShellSystem)
   --precond   block_jacobi | jacobi (ShellSystem) | mg (geometric
               multigrid, structured grids: MultigridShellSystem.solve,
-              f64 levels)
+              f64 levels) | amg (smoothed-aggregation AMG, arbitrary
+              meshes: AMGShellSystem, RCM-reordered unless --reorder says
+              otherwise; f32 cycle with --f32, --df or --refined)
+  --reorder   rcm: reverse Cuthill-McKee renumbering (LargeShellSystem,
+              or AMG's reorder)
   --df        with --precond mg: solve_df on the f64 levels (f64 CG, f32
-              V-cycle); native f64 takes the place of the JAX package's
-              f32-assembled two-float32 operator
+              V-cycle); with amg: solve_df (f64 CG, the cycle in f32);
+              else LargeShellSystem.solve_df (f64 CG on the scaled
+              operator). Native f64 takes the place of the JAX package's
+              two-float32 arithmetic
   --refined   with --precond mg: the df_operator system's
-              solve_df_refined (refinement against the class tables)
+              solve_df_refined (refinement against the class tables); with
+              amg or without mg: solve_df_refined on the true residual
+  --f32       with --precond amg: the f32 cycle and CG (AMGShellSystem
+              dtype=float32)
   --device    cuda (default) | cpu
 
 Flags whose path is not ported yet print an ERROR naming ROADMAP.md and
-exit 2: --precond amg, --devices > 1, --reorder, --stress, --f32, and
---df / --refined without --precond mg.
+exit 2: --devices > 1, --stress, and --f32 outside --precond amg.
 """
 from __future__ import annotations
 
@@ -58,23 +66,25 @@ def _parse(argv: List[str]):
         choices=("block_jacobi", "jacobi", "mg", "amg"),
         default="block_jacobi",
         help="mg = geometric multigrid V-cycle (structured grid meshes; "
-        "mesh-independent iteration counts); amg is not ported yet",
+        "mesh-independent iteration counts); amg = smoothed-aggregation "
+        "algebraic multigrid (arbitrary meshes)",
     )
-    ap.add_argument("--reorder", choices=("rcm",), default=None, help="not ported yet")
+    ap.add_argument("--reorder", choices=("rcm",), default=None,
+                    help="bandwidth-reduce the node numbering (reverse Cuthill-McKee) before solving")
     ap.add_argument("--stress", action="store_true", help="not ported yet")
-    ap.add_argument("--f32", action="store_true", help="not ported yet")
+    ap.add_argument("--f32", action="store_true", help="with --precond amg: f32 cycle and CG")
     ap.add_argument(
         "--df",
         action="store_true",
-        help="with --precond mg: f64 CG preconditioned by the V-cycle on f32 "
-        "copies of the f64 levels (native f64 replaces the JAX package's "
-        "f32-assembled two-float32 operator)",
+        help="f64 CG on the scaled operator (with --precond mg or amg: "
+        "preconditioned by the f32 cycle); native f64 replaces the JAX "
+        "package's two-float32 arithmetic",
     )
     ap.add_argument(
         "--refined",
         action="store_true",
-        help="with --precond mg: refinement against the exact class-table "
-        "operator (df_operator=True, solve_df_refined)",
+        help="df solve plus iterative refinement on the true residual (with "
+        "--precond mg: against the exact class-table operator)",
     )
     ap.add_argument("--devices", type=int, default=1, help="values > 1 are not ported yet")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -85,20 +95,13 @@ def _parse(argv: List[str]):
 def _unported(args) -> Optional[str]:
     """The first requested path that is not ported yet, as '<what> ... item
     N', or None."""
-    if args.precond == "amg":
-        return "--precond amg (smoothed-aggregation AMG) is not ported yet (ROADMAP.md Queue 1 item 8)"
     if args.devices > 1:
         return "--devices > 1 (sharded solves) is not ported yet (ROADMAP.md Queue 1 item 9)"
-    if args.reorder:
-        return "--reorder (RCM node reordering) is not ported yet (ROADMAP.md Queue 1 item 6)"
     if args.stress:
         return "--stress (stress recovery) is not ported yet (ROADMAP.md Queue 1 item 10)"
-    if args.f32:
+    if args.f32 and args.precond != "amg":
         item = 6 if args.precond == "mg" else 11
         return f"--f32 (f32 assembly) is not ported yet (ROADMAP.md Queue 1 item {item})"
-    if (args.df or args.refined) and args.precond != "mg":
-        return ("--df / --refined without --precond mg (LargeShellSystem's df solves) is not "
-                "ported yet (ROADMAP.md Queue 1 item 6)")
     return None
 
 
@@ -156,6 +159,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             system = MultigridShellSystem(mesh, material, device=device)
             u = system.solve(forces, rtol=args.rtol, maxiter=args.maxiter)
+            iters, res = int(system.last_cg.iters), float(system.last_cg.residual)
+    elif args.precond == "amg":
+        from fem_shell_tpu_torch.amg import AMGShellSystem
+
+        use_df = args.df or args.refined
+        amg_dtype = torch.float32 if (args.f32 or use_df) else torch.float64
+        system = AMGShellSystem(mesh, material, dtype=amg_dtype, df=use_df,
+                                reorder=args.reorder or "rcm", device=device)
+        if args.refined:
+            u = system.solve_df_refined(forces, rtol=args.rtol, inner_maxiter=args.maxiter)
+        elif args.df:
+            u = system.solve_df(forces, rtol=args.rtol, maxiter=args.maxiter)
+        else:
+            u = system.solve(forces, rtol=args.rtol, maxiter=args.maxiter)
+        iters, res = system.last_iters, system.last_residual
+    elif args.df or args.refined or args.reorder:
+        from fem_shell_tpu_torch.large import LargeShellSystem
+
+        system = LargeShellSystem(mesh, material, reorder=args.reorder, device=device)
+        if args.refined:
+            u = system.solve_df_refined(forces, rtol=args.rtol, inner_maxiter=args.maxiter)
+            iters, res = system.last_iters, system.last_residual
+        elif args.df:
+            u = system.solve_df(forces, rtol=args.rtol, maxiter=args.maxiter)
+            iters, res = system.last_iters, system.last_residual
+        else:
+            u = system.solve(forces, rtol=args.rtol, maxiter=args.maxiter, precond=args.precond)
             iters, res = int(system.last_cg.iters), float(system.last_cg.residual)
     else:
         system = ShellSystem(mesh, material, device=device)

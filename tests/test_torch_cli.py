@@ -13,6 +13,10 @@ utils/cli.py) against the JAX package's, on the CPU.
   residual printed at convergence is rounding noise (~1e-13, three
   digits) in both, so it is held to be below the requested rtol on both
   sides instead.
+- the unstructured routes (``--precond amg``, with ``--refined``;
+  ``--reorder rcm``; ``--df`` and ``--refined`` without ``--precond mg``)
+  print the JAX CLI's lines and write its .vtu arrays (tolerances at
+  ``UNSTRUCTURED``);
 - every flag whose path is not ported exits 2 with an ERROR naming
   ROADMAP.md.
 """
@@ -142,9 +146,47 @@ def test_solver_cli_other_routes(tmp_path, capsys, route):
     assert abs(np.abs(w).max() - 0.106405) < 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--precond", "amg"], ["--devices", "2"], ["--reorder", "rcm"],
-                                  ["--stress"], ["--f32"], ["--df"], ["--refined"]],
-                         ids=["amg", "devices", "reorder", "stress", "f32", "df", "refined"])
+# the unstructured routes (AMGShellSystem, LargeShellSystem): the port's
+# .vtu arrays against the JAX CLI's, to 1e-10 of the largest of each kind;
+# the JAX --df CG runs in two-float32 arithmetic that the CPU compiler
+# FMA-contracts (ROADMAP.md Queue 3, "Differences"), which leaves it 1.4e-7
+# from f64 on this plate, so that route is held to 1e-6 of the JAX --df
+# run and to 1e-10 of the JAX f64 ShellSystem solve
+UNSTRUCTURED = {"amg": ["--precond", "amg"], "amg-refined": ["--precond", "amg", "--refined"],
+                "reorder": ["--reorder", "rcm"], "df": ["--df"], "refined": ["--refined"]}
+
+
+@pytest.mark.parametrize("route", list(UNSTRUCTURED.values()), ids=list(UNSTRUCTURED))
+def test_solver_cli_unstructured_routes_match_jax(tmp_path, capsys, route):
+    base = str(tmp_path / "plate")
+    meshgen(PLATE.split() + [base])
+    rc_j, jout = _run(jcli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_j"] + route, capsys)
+    rc_t, tout = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_t", "--device", "cpu"]
+                      + route, capsys)
+    assert rc_j == rc_t == 0 and len(jout) == len(tout) and tout[-1] == "All done :)"
+    for lj, lt in zip(jout, tout):
+        assert _NUM.sub("#", lj) == _NUM.sub("#", lt.replace(base + "_t", base + "_j"))
+        if lt.startswith("Linear solve:"):
+            it, res = _NUM.findall(lt)
+            assert float(res) < 1e-10
+            if route != ["--df"] and route != ["--refined"]:  # the JAX df CG counts differently
+                assert abs(int(it) - int(_NUM.findall(lj)[0])) <= 1, (lj, lt)
+    vj, vt = _vtu_arrays(base + "_j.vtu"), _vtu_arrays(base + "_t.vtu")
+    gate = 1e-6 if route == ["--df"] else 1e-10
+    for name in ("displacement", "rotation"):
+        assert np.abs(vj[name] - vt[name]).max() <= gate * np.abs(vj[name]).max(), name
+    if route == ["--df"]:
+        from fem_shell_tpu.materials import Material as JMaterial
+        from fem_shell_tpu.mesh import load_mesh_and_forces as jload
+        from fem_shell_tpu.system import ShellSystem as JSystem
+
+        jmesh, forces = jload(base + ".xda")
+        u = np.asarray(JSystem(jmesh, JMaterial(0.3, 1e7, 0.5)).solve(forces))
+        assert np.abs(vt["displacement"].reshape(-1, 3) - u[:, :3]).max() <= 1e-10 * np.abs(u[:, :3]).max()
+
+
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--stress"], ["--f32"]],
+                         ids=["devices", "stress", "f32"])
 def test_unported_flag_exits_2(tmp_path, capsys, flag):
     base = str(tmp_path / "plate")
     meshgen(PLATE.split() + [base])

@@ -23,6 +23,7 @@ _FOREIGN = re.compile(r"^jax(\.|$)|\bfem_shell_tpu\b(?!_torch)")
 
 _CHILD = r"""
 import sys
+import numpy as np
 import fem_shell_tpu_torch
 from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, generate
 from fem_shell_tpu_torch.ops import _build
@@ -67,6 +68,19 @@ s = mg._systems[0]
 v, d = s.assemble_df(method="grid", with_diag=True)
 ref = s.assemble()
 assert float((v - ref).abs().max()) <= 1e-13 * float(ref.abs().max()) and d.shape == (6, v.shape[2])
+from fem_shell_tpu_torch.amg import AMGShellSystem
+from fem_shell_tpu_torch.large import LargeShellSystem
+from fem_shell_tpu_torch.mesh import permute_nodes
+p = MeshGenParams("q", 8, 8, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z")
+mesh, rows, fac = generate(p)
+perm = np.random.default_rng(0).permutation(mesh.n_nodes)
+pm, pf = permute_nodes(mesh, perm), (rows * fac)[perm]
+big = LargeShellSystem(pm, Material(0.3, 1e7, 0.5), reorder="rcm", device="cpu")
+big.solve_df_refined(pf)
+assert big.refine_history[-1] < 1e-9
+amg = AMGShellSystem(pm, Material(0.3, 1e7, 0.5), dtype=torch.float32, df=True, device="cpu")
+amg.solve_df_refined(pf)
+assert amg.refine_history[-1] < 1e-9
 bad =sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "fem_shell_tpu" or m.startswith("fem_shell_tpu."))
 print("FOREIGN", bad)
@@ -78,7 +92,8 @@ def test_package_and_solve_import_no_jax():
     # a fresh interpreter (this test process has imported JAX already)
     # runs the fused solve, the f64 multigrid solve, ShellSystem, the
     # writers, the meshgen and solver CLIs, the refined solves of the class
-    # operator and of the materialized pair, and a 12^2 grid assembly
+    # operator and of the materialized pair, a 12^2 grid assembly, and a
+    # renumbered plate's refined LargeShellSystem and AMG solves
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

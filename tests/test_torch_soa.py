@@ -145,6 +145,10 @@ def test_stencil_spmv_rejects_bad_inputs():
 
 
 def test_gather_mode_not_ported():
+    """A mesh with more stencil offsets than the stencil mode takes, which
+    the port once refused, now takes the gather mode: the pattern equals
+    the JAX package's (tests/test_torch_soa_gather.py holds the rest)."""
+    from fem_shell_tpu.mesh import ShellMesh as JShellMesh
     from fem_shell_tpu_torch.mesh import ShellMesh, XDA_TRI3
 
     # a fan of triangles around node 0 couples it to 40 distinct offsets
@@ -154,5 +158,8 @@ def test_gather_mode_not_ported():
     coords[1:, 0], coords[1:, 1] = np.cos(ang), np.sin(ang)
     conn = np.array([[0, i, i % (n - 1) + 1, -1] for i in range(1, n)])
     mesh = ShellMesh(coords, np.full(n - 1, XDA_TRI3), conn, np.zeros((0, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsoa.build_soa_pattern(mesh)
+    tp = tsoa.build_soa_pattern(mesh)
+    jp = jsoa.build_soa_pattern(JShellMesh(coords, np.full(n - 1, XDA_TRI3), conn, np.zeros((0, 3))))
+    assert tp.offsets is None and jp.offsets is None and tp.k == jp.k == n
+    np.testing.assert_array_equal(tp.adj_t, jp.adj_t)
+    np.testing.assert_array_equal(tp.tri_slot, jp.tri_slot)
