@@ -22,13 +22,14 @@ preconditioner for unstructured shell meshes. Port of
   hierarchy on the symmetrically diagonal-scaled operator, for
   ``solve_df`` (the JAX package's df outer CG as a native f64 CG over the
   scaled f64 fine operator, preconditioned by the cycle in ``dtype``) and
-  ``solve_df_refined`` (iterative refinement on the true residual,
-  compensated; E = A64 - (hi + lo) is zero in native f64, and the iterate
-  is a double-double, as in ``large.LargeShellSystem.solve_df_refined``).
+  ``solve_df_refined`` (``solver.refine``, the loop of
+  ``large.LargeShellSystem.solve_df_refined``, on the true residual
+  compensated by ``ops/soa.gather_resid_dd``; E = A64 - (hi + lo) is zero
+  in native f64, and the iterate is a double-double).
 
 The block-ELL products (level matvecs, prolongation) are
-``ops/assemble.ell_matvec``, ``ShellSystem``'s matvec; in f32 they rely on
-TF32 staying off (PyTorch's default).
+``ops/assemble.ell_matvec``, ``ShellSystem``'s matvec: elementwise
+products and sums, which TF32 does not touch.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ from fem_shell_tpu_torch.large import LargeShellSystem
 from fem_shell_tpu_torch.materials import Material
 from fem_shell_tpu_torch.mesh import ShellMesh
 from fem_shell_tpu_torch.ops.assemble import ell_matvec
-from fem_shell_tpu_torch.ops.stencil_resid import dd_add, resid_dd
-from fem_shell_tpu_torch.solver import pcg
+from fem_shell_tpu_torch.ops.soa import gather_resid_dd
+from fem_shell_tpu_torch.solver import pcg, refine
 
 # ----------------------------------------------------------------------
 # host-side setup
@@ -65,8 +66,7 @@ def _strong_graph(lvl: "_HostLevel", theta: float):
     ||A_ij||_F >= theta * sqrt(||A_ii||_F ||A_jj||_F)."""
     n = lvl.n
     fro = np.sqrt((lvl.blocks**2).sum(axis=(2, 3)))  # [n, K]
-    self_slot = np.argmax(lvl.adj == np.arange(n)[:, None], axis=1)
-    dia = fro[np.arange(n), self_slot]
+    dia = fro[np.arange(n), _self_slot(lvl)]
     dia = np.where(dia > 0, dia, 1.0)
     nbrs = []
     for i in range(n):
@@ -157,6 +157,17 @@ class _HostLevel:
     adj: np.ndarray  # [n, K] block column ids (self included)
     blocks: np.ndarray  # [n, K, 6, 6]
     n: int
+    self_slot: Optional[np.ndarray] = None  # [n]; None: each node's first slot holding its id
+
+
+def _self_slot(lvl: _HostLevel) -> np.ndarray:
+    """[n] each node's self slot. A stencil-mode fine level names it (the
+    offset-0 slot): there node 0's out-of-range negative offsets, clipped to
+    0, hold its id with zero blocks before it. Elsewhere padding repeats
+    the id after the real self slot, so the first one is it."""
+    if lvl.self_slot is not None:
+        return lvl.self_slot
+    return np.argmax(lvl.adj == np.arange(lvl.n)[:, None], axis=1)
 
 
 def _ell_matvec(lvl: _HostLevel, x):
@@ -176,8 +187,7 @@ def _lam_max(lvl: _HostLevel, inv_diag, iters=12, seed=7):
 
 
 def _block_inv_diag(lvl: _HostLevel):
-    self_slot = np.argmax(lvl.adj == np.arange(lvl.n)[:, None], axis=1)
-    d = lvl.blocks[np.arange(lvl.n), self_slot]
+    d = lvl.blocks[np.arange(lvl.n), _self_slot(lvl)]
     # regularize empty/constrained blocks
     bad = np.abs(np.diagonal(d, axis1=1, axis2=2)).max(axis=1) == 0
     d[bad] = np.eye(6)
@@ -193,9 +203,8 @@ def _smooth_p(lvl: _HostLevel, p0, agg, omega, inv_diag):
     dinva = np.einsum("nab,nkbc->nkac", inv_diag, lvl.blocks)
     contrib = -omega * np.einsum("nkab,nkbc->nkac", dinva, p0[lvl.adj])
     # add the identity term at each row's self slot: += p0[i]
-    self_mask = lvl.adj == np.arange(n)[:, None]
-    self_slot = np.argmax(self_mask, axis=1)
-    has_self = self_mask.any(axis=1)
+    self_slot = _self_slot(lvl)
+    has_self = lvl.adj[np.arange(n), self_slot] == np.arange(n)
     rows_s = np.nonzero(has_self)[0]
     contrib[rows_s, self_slot[rows_s]] += p0[rows_s]
     # dedupe columns per row
@@ -420,14 +429,6 @@ def amg_cycle(levels: List[_DeviceLevel], b, nu_smooth: int = 3, cycle: str = "W
     return _smooth(dl, x, b, nu_smooth)
 
 
-def ell_resid_dd(blocks, adj, x, b):
-    """r = b - A x on block-ELL [n, K, 6, 6], summed in double-double
-    (``ops/stencil_resid.resid_dd``), slot by slot and column by column."""
-    xg = x[adj]  # [n, K, 6]
-    return resid_dd(b, ((blocks[:, k, :, bb], xg[:, k, bb : bb + 1])
-                        for k in range(adj.shape[1]) for bb in range(6)))
-
-
 # ----------------------------------------------------------------------
 
 
@@ -485,12 +486,15 @@ class AMGShellSystem:
             k = len(offs)
             blocks = np.transpose(vals.reshape(6, 6, k, pat.n_pad), (3, 2, 0, 1))  # [Npad, K, 6, 6]
             blocks[(raw < 0) | (raw >= pat.n_pad)] = 0.0  # out-of-range (clipped) couplings
+            self_slot = np.full(n, int(np.searchsorted(offs, 0)))
         else:
             adj = np.asarray(pat.adj_t).T  # [Npad, K]
             k = adj.shape[1]
             blocks = np.transpose(vals.reshape(6, 6, k, pat.n_pad), (3, 2, 0, 1))
+            self_slot = None
         del vals
-        lvl0 = _HostLevel(adj[:n].astype(np.int64).clip(0, n - 1), np.ascontiguousarray(blocks[:n]), n)
+        lvl0 = _HostLevel(adj[:n].astype(np.int64).clip(0, n - 1), np.ascontiguousarray(blocks[:n]), n,
+                          self_slot)
         del blocks
 
         coords = np.asarray(self.sys.mesh.coords, np.float64)  # after reordering
@@ -608,35 +612,24 @@ class AMGShellSystem:
 
     def solve_df_refined(self, forces, rtol: float = 1e-9, n_refine: int = 6, inner_rtol: float = 1e-5,
                          inner_maxiter: int = 2000, verbose: bool = False):
-        """``solve_df`` to ``inner_rtol`` plus iterative refinement on the
-        compensated true residual of the scaled f64 operator, the iterate a
-        double-double; the loop stops at ``rtol``, on a non-finite
-        residual, or when a pass improves the residual by less than 10x.
-        Sets ``last_iters``, ``last_residual``, ``refine_history`` and
+        """``solve_df`` to ``inner_rtol`` plus iterative refinement
+        (``solver.refine``) on the compensated true residual of the scaled
+        f64 operator (``ops/soa.gather_resid_dd`` on a view of the
+        node-major blocks), the iterate a double-double. Sets
+        ``last_iters``, ``last_residual``, ``refine_history`` and
         ``refine_inner_iters``; returns as ``solve``."""
         self._require_df()
         blocks, adj = self._fine64
         b = self._rhs(forces) * self._s_df
-        bn = float(torch.sqrt(torch.sum(b * b)))
-        res = self._inner(b, inner_rtol, inner_maxiter)
-        x_hi, x_lo = res.x, torch.zeros_like(res.x)
-        inner, hist = [int(res.iters)], []
-        for _ in range(n_refine):
-            r = ell_resid_dd(blocks, adj, x_hi, b) - ell_matvec(blocks, adj, x_lo)
-            rn = float(torch.sqrt(torch.sum(r * r))) / bn
-            hist.append(rn)
-            if verbose:
-                print(f"  refine[amg]: true residual {rn:.3e} ({sum(inner)} inner iters)", flush=True)
-            if rn < rtol or not np.isfinite(rn):
-                break
-            # under 10x improvement in a pass is the floor
-            if len(hist) > 1 and rn > 0.1 * hist[-2]:
-                break
-            d = self._inner(r, inner_rtol, inner_maxiter)
-            x_hi, x_lo = dd_add(x_hi, x_lo, d.x)
-            inner.append(int(d.iters))
-        self.last_iters = sum(inner)
-        self.last_residual = hist[-1] if hist else float("nan")
-        self.refine_history = hist
-        self.refine_inner_iters = inner
-        return self._out(x_hi + x_lo)
+        # [n, K, 6, 6] / [n, K] / [n, 6] viewed as the SoA [6, 6, K, n] / [K, n] / [6, n]
+        values, adj_t, b_t = blocks.permute(2, 3, 1, 0), adj.T, b.T
+
+        def resid(x_hi, x_lo):
+            return gather_resid_dd(values, x_hi.T, b_t, adj_t).T - ell_matvec(blocks, adj, x_lo)
+
+        out = refine(self._inner, resid, b, rtol, n_refine, inner_rtol, inner_maxiter, verbose)
+        self.last_iters = sum(out.inner_iters)
+        self.last_residual = out.history[-1] if out.history else float("nan")
+        self.refine_history = out.history
+        self.refine_inner_iters = out.inner_iters
+        return self._out(out.x)

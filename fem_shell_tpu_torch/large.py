@@ -60,9 +60,9 @@ from fem_shell_tpu_torch.ops.soa import (
     soa_matvec,
     soa_self_blocks,
 )
-from fem_shell_tpu_torch.ops.stencil_resid import dd_add, stencil_resid_dd
+from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
 from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
-from fem_shell_tpu_torch.solver import pcg
+from fem_shell_tpu_torch.solver import pcg, refine
 
 # from this many elements a structured grid is assembled by the grid
 # pipeline (assemble_df "auto"), and a multigrid hierarchy over such a
@@ -164,18 +164,15 @@ class LargeShellSystem:
                                   dev(scatter_passes(p.quad_slot, self.chunk)))
         return self._passes_cache
 
-    def _assemble_impl(self, coords, tables, element_fn=None):
+    def _assemble_impl(self, coords, tables):
         tri_passes, quad_passes = self._passes
         values = assemble_soa(self.pattern, coords, tables["tri_conn"], tables["quad_conn"], tri_passes,
-                              quad_passes, self.dm, self.dp, self.thickness, chunk=self.chunk,
-                              element_fn=element_fn)
+                              quad_passes, self.dm, self.dp, self.thickness, chunk=self.chunk)
         return apply_bc_soa(values, tables["free_t"], offsets=self.offsets, adj_t=tables["adj_t"])
 
-    def assemble(self, element_fn=None):
-        """BC-eliminated operator values [36, K, Npad] in f64. ``element_fn``
-        replaces the element kernel's wrapper (a comparison passes
-        ``ops/elem_stiffness.elem_stiffness_plain``)."""
-        return self._assemble_impl(self.coords, self._tables, element_fn)
+    def assemble(self):
+        """BC-eliminated operator values [36, K, Npad] in f64."""
+        return self._assemble_impl(self.coords, self._tables)
 
     @functools.cached_property
     def grid(self):
@@ -299,45 +296,29 @@ class LargeShellSystem:
         self.last_residual = float(res.residual)
         return self._solution_out(res.x * s)
 
-    def _true_residual(self, values, x_hi, x_lo, b):
-        """r = b - A (x_hi + x_lo) on the scaled operator and ||r|| / ||b||:
-        the term of x_hi compensated, that of x_lo (~eps |x_hi|) in f64."""
+    def _true_residual(self, values, b):
+        """r(x_hi, x_lo) = b - A (x_hi + x_lo) on the scaled operator: the
+        term of x_hi compensated, that of x_lo (~eps |x_hi|) in f64."""
+        mv = self._matvec(values)
         if self.offsets is not None:
-            r = stencil_resid_dd(values, x_hi, b, self.offsets)
-        else:
-            r = gather_resid_dd(values, x_hi, b, self.adj_t)
-        r = r - self._matvec(values)(x_lo)
-        return r, float(torch.sqrt(torch.sum(r * r)) / torch.sqrt(torch.sum(b * b)))
+            offsets = self.offsets
+            return lambda x_hi, x_lo: stencil_resid_dd(values, x_hi, b, offsets) - mv(x_lo)
+        adj_t = self.adj_t
+        return lambda x_hi, x_lo: gather_resid_dd(values, x_hi, b, adj_t) - mv(x_lo)
 
     def solve_df_refined(self, forces, rtol: float = 1e-9, n_refine: int = 6, inner_rtol: float = 1e-5,
                          inner_maxiter: int = 20000, verbose: bool = False):
         """``solve_df``'s CG to ``inner_rtol`` plus iterative refinement on
-        the true residual (module docstring), on any mesh: the loop stops at
-        ``rtol``, on a non-finite residual, or when a pass improves the
-        residual by less than 10x (the floor). Sets ``last_iters`` (all inner
-        iterations), ``last_residual``, ``refine_history`` (true residual per
-        pass) and ``refine_inner_iters``; returns as ``solve``."""
+        the true residual (module docstring; ``solver.refine``), on any
+        mesh. Sets ``last_iters`` (all inner iterations), ``last_residual``,
+        ``refine_history`` (true residual per pass) and
+        ``refine_inner_iters``; returns as ``solve``."""
         values, s = self._scaled()
         b = self._forces_in(forces) * (self.free_t != 0) * s
-        res = self._cg_identity(values, b, inner_rtol, inner_maxiter)
-        x_hi, x_lo = res.x, torch.zeros_like(res.x)
-        inner, hist = [int(res.iters)], []
-        for _ in range(n_refine):
-            r, rn = self._true_residual(values, x_hi, x_lo, b)
-            hist.append(rn)
-            if verbose:
-                print(f"  refine: true residual {rn:.3e} ({sum(inner)} inner iters)", flush=True)
-            if rn < rtol or not np.isfinite(rn):
-                break
-            # a healthy pass with inner_rtol=1e-5 contracts the true
-            # residual by orders of magnitude; under 10x is the floor
-            if len(hist) > 1 and rn > 0.1 * hist[-2]:
-                break
-            d = self._cg_identity(values, r, inner_rtol, inner_maxiter)
-            x_hi, x_lo = dd_add(x_hi, x_lo, d.x)
-            inner.append(int(d.iters))
-        self.last_iters = sum(inner)
-        self.last_residual = hist[-1] if hist else float("nan")
-        self.refine_history = hist
-        self.refine_inner_iters = inner
-        return self._solution_out((x_hi + x_lo) * s)
+        out = refine(lambda rhs, tol, it: self._cg_identity(values, rhs, tol, it), self._true_residual(values, b),
+                     b, rtol, n_refine, inner_rtol, inner_maxiter, verbose)
+        self.last_iters = sum(out.inner_iters)
+        self.last_residual = out.history[-1] if out.history else float("nan")
+        self.refine_history = out.history
+        self.refine_inner_iters = out.inner_iters
+        return self._solution_out(out.x * s)

@@ -116,9 +116,10 @@ def _first_self(adj):
 
 def ell_matvec(blocks, adj, x):
     """y[i] = sum_k blocks[i, k] @ x[adj[i, k]] with blocks [N, K, 6, 6],
-    adj [N, K] and x [N', 6]: a gather and one batched 6x6 contraction."""
-    xg = x[adj]  # [N, K, 6]
-    return torch.matmul(blocks, xg.unsqueeze(-1)).squeeze(-1).sum(dim=1)
+    adj [N, K] and x [N', 6]: a gather, an elementwise product and one sum
+    over the slots and columns (on the card faster than a batched matmul,
+    which cuBLAS runs as a batched gemv)."""
+    return (blocks * x[adj][..., None, :]).sum(dim=(-1, 1))
 
 
 @dataclasses.dataclass

@@ -146,16 +146,16 @@ def scatter_passes(slot: np.ndarray, chunk: int) -> List[Tuple[np.ndarray, np.nd
     return out
 
 
-def _scatter_family(flat, coords, conn, passes, chunk, dm, dp, thickness, element_fn):
+def _scatter_family(flat, coords, conn, passes, chunk, dm, dp, thickness):
     """Add one element family into flat [36, K*Npad]: per chunk one
-    ``element_fn`` call (xyz [m, 3, C] -> ke [6m, 6m, C]), then its passes
-    of gather, add and write on distinct slots."""
+    ``elem_stiffness`` call (xyz [m, 3, C] -> ke [6m, 6m, C]), then its
+    passes of gather, add and write on distinct slots."""
     e, m = conn.shape
     for i, start in enumerate(range(0, e, chunk)):
         cc = conn[start : start + chunk]
         c = cc.shape[0]
         xyz = coords[cc].permute(1, 2, 0).contiguous()  # [m, 3, C]
-        ke = element_fn(xyz, dm, dp, thickness)  # [6m, 6m, C]
+        ke = elem_stiffness(xyz, dm, dp, thickness)  # [6m, 6m, C]
         # (a r, b c, e) -> (r c, e a b): column e*m*m + a*m + b of kb
         kb = ke.view(m, 6, m, 6, c).permute(1, 3, 4, 0, 2).reshape(36, c * m * m)
         del ke
@@ -167,19 +167,16 @@ def _scatter_family(flat, coords, conn, passes, chunk, dm, dp, thickness, elemen
 
 
 def assemble_soa(pattern: SoAPattern, coords, tri_conn, quad_conn, tri_passes, quad_passes,
-                 dm, dp, thickness, chunk: int = 16384, element_fn=None):
+                 dm, dp, thickness, chunk: int = 16384):
     """Operator values [36, K, Npad] before Dirichlet elimination, from
     plain coordinates ``coords`` [N,3] f64. ``tri_passes`` /
     ``quad_passes`` are ``scatter_passes`` of the pattern's slots at this
-    ``chunk``, as device tensors. ``element_fn`` replaces the element
-    kernel's wrapper ``elem_stiffness`` (a comparison passes
-    ``elem_stiffness_plain`` to run the plain element math on any device)."""
-    element_fn = elem_stiffness if element_fn is None else element_fn
+    ``chunk``, as device tensors."""
     npad, k = pattern.n_pad, pattern.k
     flat = torch.zeros((36, npad * k), dtype=coords.dtype, device=coords.device)
     for conn, passes in ((tri_conn, tri_passes), (quad_conn, quad_passes)):
         if conn.shape[0]:
-            _scatter_family(flat, coords, conn, passes, chunk, dm, dp, thickness, element_fn)
+            _scatter_family(flat, coords, conn, passes, chunk, dm, dp, thickness)
     # slot index = s*Npad + n, so this reshape is a free view
     return flat.reshape(36, k, npad)
 

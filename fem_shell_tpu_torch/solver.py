@@ -7,14 +7,19 @@ exactly: stop when ||r|| <= max(rtol ||b||, atol), at ``maxiter``, or when
 the residual has grown for 8 consecutive iterations and sits above
 ``blowup_factor`` times its start (the divergence guard; a healthy MG-CG
 may spike its residual ~1e4x on iteration 1, so a single spike never
-stops it). ``dense_solve`` is the direct solve on a densified operator
-(small systems, the oracle path).
+stops it). ``refine`` is the iterative-refinement loop of the refined
+solves (``large.py``, ``amg.py``). ``dense_solve`` is the direct solve on a
+densified operator (small systems, the oracle path).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import math
+
 import torch
+
+from fem_shell_tpu_torch.ops.stencil_resid import dd_add
 
 
 class CGResult(NamedTuple):
@@ -80,6 +85,48 @@ def pcg(
         it += 1
     rel = rn / b_norm if b_norm > 0 else rn
     return CGResult(x, it, rel)
+
+
+class RefineResult(NamedTuple):
+    x: torch.Tensor  # x_hi + x_lo
+    history: list  # true ||r|| / ||b|| per pass
+    inner_iters: list  # inner iterations per solve, the first included
+
+
+def refine(
+    inner: Callable[[torch.Tensor, float, int], CGResult],
+    resid: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    rtol: float,
+    n_refine: int,
+    inner_rtol: float,
+    inner_maxiter: int,
+    verbose: bool = False,
+) -> RefineResult:
+    """Iterative refinement: ``inner(rhs, inner_rtol, inner_maxiter)`` solves
+    A x = b, then each pass computes the true residual ``resid(x_hi, x_lo)``
+    of the iterate, kept as a double-double x_hi + x_lo, and adds the inner
+    solve of it. The loop stops at ``rtol``, on a non-finite residual, or
+    when a pass improves the residual by less than 10x (the floor: a
+    healthy pass with inner_rtol=1e-5 gains orders of magnitude)."""
+    b_norm = float(torch.sqrt(torch.sum(b * b)))
+    res = inner(b, inner_rtol, inner_maxiter)
+    x_hi, x_lo = res.x, torch.zeros_like(res.x)
+    iters, hist = [int(res.iters)], []
+    for _ in range(n_refine):
+        r = resid(x_hi, x_lo)
+        rn = float(torch.sqrt(torch.sum(r * r))) / b_norm
+        hist.append(rn)
+        if verbose:
+            print(f"  refine: true residual {rn:.3e} ({sum(iters)} inner iters)", flush=True)
+        if rn < rtol or not math.isfinite(rn):
+            break
+        if len(hist) > 1 and rn > 0.1 * hist[-2]:
+            break
+        d = inner(r, inner_rtol, inner_maxiter)
+        x_hi, x_lo = dd_add(x_hi, x_lo, d.x)
+        iters.append(int(d.iters))
+    return RefineResult(x_hi + x_lo, hist, iters)
 
 
 def dense_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,10 @@ against the JAX package's fem_shell_tpu/amg.py, on the CPU.
   ``df=True`` with the f32 cycle, ``solve_df`` and ``solve_df_refined``
   within 1e-8; the Test-E I-beam refined twice within 1e-7 of
   ShellSystem (tests/test_amg.py:36-55).
+- Stencil mode (the I-beam refined once keeps constant offsets after RCM):
+  the port takes node 0's offset-0 slot as its self slot, where the JAX
+  first-match rule takes a clipped zero block (ROADMAP.md "Differences");
+  with that slot moved first, the JAX set-up gives the port's hierarchy.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +162,42 @@ def test_refined_ibeam():
     assert ta.last_residual < 1e-10 and ta.last_iters < 120
     ref = ShellSystem(tmesh, material_from_jax(mat), device="cpu").solve(f).numpy()
     assert np.abs(u - ref).max() <= 1e-7 * np.abs(ref).max()
+
+
+def test_stencil_mode_self_slot_against_jax():
+    mat = material_from_jax(JMaterial(nu=0.25, em=10000, thickness=0.25))
+    mesh = mesh_from_jax(jrefine(mesh_from_tris(JE.COORDS, JE.TRIS, JE.BOUNDARY_SIDES), 1))
+    ta = tamg.AMGShellSystem(mesh, mat, coarse_max=50, device="cpu")
+    l0, offsets = ta.h_levels[0], ta.sys.offsets
+    k0 = int(np.searchsorted(offsets, 0))
+    # stencil mode, and node 0's clipped negative offsets repeat its id before slot k0
+    assert offsets is not None and (l0.adj[0, :k0] == 0).any() and len(ta.h_levels) >= 2
+    assert not ta.sys.mesh.dirichlet_mask()[0].all()
+    inv0 = np.linalg.inv(l0.blocks[0, k0])
+    assert np.abs(ta.levels[0].inv_diag[0].numpy() - inv0).max() <= 1e-13 * np.abs(inv0).max()
+    # the JAX rule on the same level: node 0's inverse diagonal is the identity
+    jl = jamg._HostLevel(l0.adj, l0.blocks, l0.n)
+    np.testing.assert_array_equal(jamg._block_inv_diag(jl)[0], np.eye(6))
+    # node 0's real self slot first: the JAX set-up gives the port's
+    order = np.r_[k0, np.delete(np.arange(l0.adj.shape[1]), k0)]
+    adj, blocks = l0.adj.copy(), l0.blocks.copy()
+    adj[0], blocks[0] = adj[0, order], blocks[0, order]
+    jl = jamg._HostLevel(adj, blocks, l0.n)
+    null = jamg._rigid_modes(np.asarray(ta.sys.mesh.coords, np.float64))
+    agg, n_agg = jamg.aggregate(jl.adj, jl.n, jamg._strong_graph(jl, 0.06))
+    p0, _ = jamg._tentative(null, agg, n_agg)
+    inv_diag = jamg._block_inv_diag(jl)
+    np.testing.assert_array_equal(inv_diag, tamg._block_inv_diag(l0))
+    pcol, pblk = jamg._smooth_p(jl, p0, agg, (4.0 / 3.0) / jamg._lam_max(jl, inv_diag), inv_diag)
+    tpcol, tpblk, tn = ta.transfers[0]
+    assert n_agg == tn
+    np.testing.assert_array_equal(pcol, tpcol)
+    assert np.abs(pblk - tpblk).max() <= 1e-13 * np.abs(pblk).max()
+    j1, t1 = jamg._rap(jl, pcol, pblk, n_agg), ta.h_levels[1]
+    np.testing.assert_array_equal(j1.adj, t1.adj)
+    assert np.abs(j1.blocks - t1.blocks).max() <= 1e-13 * np.abs(j1.blocks).max()
+    f = np.zeros((mesh.n_nodes, 6))
+    f[: JE.COORDS.shape[0]] = JE.FORCES
+    u = ta.solve(f, rtol=1e-10, maxiter=300).numpy()
+    ref = ShellSystem(mesh, mat, device="cpu").solve(f).numpy()
+    assert ta.last_residual < 1e-10 and np.abs(u - ref).max() <= 1e-7 * np.abs(ref).max()
