@@ -208,6 +208,36 @@ before the last line:
    written 64x64 plate: exit 0 and the .vtu displacements equal to the
    library calls'.
 
+11. The coupled solver and stress recovery. (a) The tower demo
+   (coupling/demo.py run_demo, 63 nodes, in-process transport) for 30
+   steps once on the CPU and twice on the card: per-step solutions within
+   1e-10 of max|u| of the CPU run, the same coupling iterations in every
+   step, one elem_stiffness<3> launch per run (the operator is assembled
+   and factored once), two runs bitwise equal, the tip |u_x| correlated
+   with 1 + sin(t/25.01) above 0.999; ms per coupling iteration (solve and
+   host coupling work, from the run's PerfLog scopes), CG iterations per
+   solve, ms per CG iteration. (b) python -m
+   fem_shell_tpu_torch.coupling.fluid_cli and .structure_cli as two
+   subprocesses over TCP (the tower XML on a free port, the mesh written
+   by the port's meshgen), 10 steps: both exit 0, the Exodus series within
+   1e-12 of max|u| of (a)'s first 10 steps; each peer killed after
+   PEER_TIMEOUT_S. (c) The tower with each cell split 16 x 16 (10,593
+   nodes, 63,558 DOF, 673 interface nodes) against the unchanged 43-node
+   dummy fluid, 5 steps, twice: every window under the XML's 40-iteration
+   cap, one elem_stiffness<3> launch per run, two runs bitwise equal, the
+   last step within 1e-8 of max|u| of ShellSystem.solve(rtol=1e-12) of
+   its load; s per step, CG iterations, ms per CG iteration, the idle
+   share of one profiled step, peak memory. (d) recover_stresses and
+   recover_stresses_nodal on the card on phase 4's converged 1024^2 tri
+   and quad fields: the centre node's nodal Mx, My within 5 % (tri) / 2 %
+   (quad) of 0.0479 q a^2, the nodal vm maximum within 6 % of the corner
+   twisting value, the element-centre peak moment within 5 %, two calls
+   bitwise equal, seconds and peak memory; on phase 3's 64x64 fields the
+   card's fields within 1e-12 of max|field| of the CPU's. (e) python -m
+   fem_shell_tpu_torch.utils.cli --stress in three concurrent subprocesses
+   (a 64x64 plate as .xda and as .xdr, the thesis example as .msh): every
+   .vtu point and cell array equal bit for bit to the library calls.
+
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
@@ -1047,17 +1077,22 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
+def profile_summary(prof, wall_ms):
+    """device_profile's record of a finished torch.profiler window of
+    ``wall_ms`` milliseconds, from the raw kineto events (key_averages()
+    first parses every event into Python objects: ~25 s for a window of
+    10^5 launches)."""
     from torch.autograd import DeviceType
 
-    rows = []
-    for e in prof.key_averages():  # device-side events only: the kernels themselves
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((e.key, us / 1e3, e.count))
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():  # device-side events only: the kernels themselves
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    rows = [(k, ms, count) for k, (ms, count) in by_name.items()]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     def by(name):
@@ -1094,12 +1129,13 @@ def assembly_times(mg):
 
 
 def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
-                jax_iters=None):
+                jax_iters=None, keep=None):
     """One main-path run of MultigridShellSystem.solve_fused: launch counts
     are reset just before the measured solve and read just after. With
     reps > 1 a warm-up solve comes first and reps-1 more are timed and held
     to the measured one bit for bit; on CUDA one more solve runs under
-    torch.profiler."""
+    torch.profiler. ``keep[f"{et}{n}"]`` receives (mesh, u as host numpy)
+    for phase 11's stress recovery."""
     from fem_shell_tpu_torch import Material, MultigridShellSystem
 
     mesh, rows, fac = plate(et, n)
@@ -1121,6 +1157,8 @@ def solve_phase(gates, et, n, device="cuda", reps=1, golden=None, gate_rel=1e-4,
         torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = read_launches()
+    if keep is not None:
+        keep[f"{et}{n}"] = (mesh, u.cpu().numpy())
     times = [solve_s]
     same = True
     for _ in range(reps - 1):
@@ -2543,6 +2581,434 @@ def unstructured_cli_phase(gates, device="cuda"):
                      "stdout": lines[-4:], "stderr": res.stderr[-2000:]})
     return rows
 
+# ----------------------------------------------------------------------
+# phase 11: the coupled solver and stress recovery
+# ----------------------------------------------------------------------
+# the tower demo's material (coupling/demo.py run_demo: nu, E, t) and the
+# refinement of phase 11(c): each cell of the 2 x 20 tower split
+# TOWER_SPLIT x TOWER_SPLIT
+TOWER = ("t", 2, 20, 3.0, 0.0, 3.25, 2.0, (2, 0, 2, 2), 0.0, 0, False, "y")  # demo.tower_mesh's MeshGenParams
+TOWER_MATERIAL = (0.3, 1e6, 0.1)
+TOWER_SPLIT = 16
+TOWER_STEPS = 30  # 11(a); 11(b) runs the first TOWER_CLI_STEPS of them
+TOWER_CLI_STEPS = 10
+TOWER_SCALE_STEPS = 5
+PEER_TIMEOUT_S = 300  # each coupled peer, thread or subprocess
+# the simply supported Test-G plate (q = 300, a = 10, t = 0.5):
+# Timoshenko Table 8 centre moment 0.0479 q a^2 and corner twisting
+# moment 0.0325 q a^2 (tests/test_recovery.py:66-137)
+PLATE_M = 0.0479 * 300.0 * 10.0**2
+PLATE_VM_CORNER = np.sqrt(3.0) * 6.0 * 0.0325 * 300.0 * 10.0**2 / 0.5**2
+RECOVERY_CENTRE_TOL = {"q": 0.02, "t": 0.05}
+RECOVERY_GATE = 1e-12  # card against the CPU, of max|field|
+STRESS_FIELDS = ("sigma_m", "moments", "vm_top", "vm_bot")
+
+
+def coupled_stats(res, wall_s):
+    """Times of one run_structure from its PerfLog scopes: per coupling
+    iteration the solve (the CG and the copy of u to the host) and the
+    host's coupling work (write, advance, read: transport, mapping,
+    IQN-ILS); CG iterations per solve and milliseconds per CG iteration."""
+    solve, coup = res.perf.stats("solve"), res.perf.stats("coupling")
+    cg = sum(res.iterations)
+    return {"timesteps": res.timesteps, "wall_s": wall_s, "setup_s": res.perf.stats("setup")["total"],
+            "coupling_iterations": len(res.iterations), "step_iterations": res.step_iterations,
+            "ms_per_coupling_iteration": 1e3 * (solve["total"] + coup["total"]) / solve["n"],
+            "solve_ms_per_coupling_iteration": 1e3 * solve["avg"],
+            "host_ms_per_coupling_iteration": 1e3 * coup["avg"],
+            "cg_iterations": cg, "cg_iterations_per_solve": cg / len(res.iterations),
+            "ms_per_cg_iteration": 1e3 * solve["total"] / cg if cg else None}
+
+
+def tower_demo_phase(gates, device="cuda"):
+    """11(a): the tower demo (coupling/demo.py run_demo, in-process
+    transport) for TOWER_STEPS steps once on the CPU and twice on
+    ``device``: per-step solutions within 1e-10 of max|u| of the CPU run,
+    the same coupling iterations in every step, one elem_stiffness<3>
+    launch per run (the operator is assembled once), two runs equal bit
+    for bit, the tip following 1 + sin(t / 25.01). Returns (record, the
+    first card run's result)."""
+    from fem_shell_tpu_torch.coupling.demo import run_demo
+
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    ref, _ = run_demo(max_timesteps=TOWER_STEPS, verbose=False, device="cpu")
+    cpu = coupled_stats(ref, time.perf_counter() - t0)
+    runs, recs = [], []
+    for k in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        res, hist = run_demo(max_timesteps=TOWER_STEPS, verbose=False, device=device)
+        rec = coupled_stats(res, time.perf_counter() - t0)
+        rec["launches"] = read_launches()
+        runs.append(res)
+        recs.append(rec)
+        gates.check(res.timesteps == TOWER_STEPS and hist is not None and len(hist) == TOWER_STEPS,
+                    f"tower demo run {k}: {res.timesteps} structure and "
+                    f"{None if hist is None else len(hist)} fluid steps of {TOWER_STEPS}")
+        if cuda:
+            got = rec["launches"]
+            gates.check(got["elem3"] == 1 and got["elem4"] == 0,
+                        f"tower demo run {k}: elem_stiffness<3> launched {got['elem3']} time(s) (1), <4> "
+                        f"{got['elem4']} (0)")
+    a, b = runs
+    scale = float(np.abs(ref.solutions).max())
+    same_shape = a.solutions.shape == ref.solutions.shape
+    diff = float(np.abs(a.solutions - ref.solutions).max()) if same_shape else float("inf")
+    gates.check(diff <= 1e-10 * scale, f"tower demo: card - CPU solutions max {diff:.3e} <= 1e-10 * {scale:.4e}")
+    gates.check(a.step_iterations == ref.step_iterations,
+                f"tower demo: coupling iterations per step {a.step_iterations} == CPU's")
+    gates.check(np.array_equal(a.solutions, b.solutions) and a.iterations == b.iterations,
+                "tower demo: two card runs equal bit for bit")
+    tip = np.abs(a.solutions[:, :, 0]).max(axis=1)
+    corr = float(np.corrcoef(tip, 1.0 + np.sin(np.arange(len(tip)) / 25.01))[0, 1])
+    gates.check(corr > 0.999, f"tower demo: tip |u_x| correlation with 1 + sin(t/25.01) {corr:.6f} > 0.999")
+    cg_diff = max(abs(x - y) for x, y in zip(a.iterations, ref.iterations)) if same_shape else None
+    for tag, rec in [("cpu", cpu)] + [(f"{device} {k}", r) for k, r in enumerate(recs)]:
+        print(f"  tower demo {tag}: {rec['wall_s']:.3f} s, {rec['coupling_iterations']} coupling iterations, "
+              f"{rec['ms_per_coupling_iteration']:.3f} ms each (solve {rec['solve_ms_per_coupling_iteration']:.3f}, "
+              f"host {rec['host_ms_per_coupling_iteration']:.3f}), {rec['cg_iterations_per_solve']:.1f} CG "
+              f"iterations per solve at {rec['ms_per_cg_iteration']:.4f} ms", flush=True)
+    return {"cpu": cpu, "runs": recs, "max_abs_diff_cpu": diff, "scale": scale, "cg_iters_max_diff_cpu": cg_diff,
+            "tip_corr": corr}, a
+
+
+def free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def coupled_cli_phase(gates, ref, device="cuda"):
+    """11(b): python -m ...coupling.fluid_cli and python -m
+    ...coupling.structure_cli as two subprocesses over TCP (the tower XML
+    on a free port, the mesh written by the port's meshgen), the structure on
+    ``device``, for TOWER_CLI_STEPS steps: both exit 0, and the Exodus
+    series holds the steps with displacements within 1e-12 of max|u| of
+    11(a)'s first steps. A peer that does not finish within
+    PEER_TIMEOUT_S is killed, with its partner, and fails the phase."""
+    import os
+    import shutil
+
+    from fem_shell_tpu_torch.coupling.demo import CONFIG
+    from fem_shell_tpu_torch.io.exodus import read_exodus_summary
+    from fem_shell_tpu_torch.meshgen import MeshGenParams, write_files
+
+    work = OUT_DIR / "coupled_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    xml = work / "tower.xml"
+    xml.write_text(Path(CONFIG).read_text().replace('port="50077"', f'port="{free_port()}"'))
+    write_files(MeshGenParams(*TOWER), str(work / "tower"))
+    nu, em, t = TOWER_MATERIAL
+    steps = str(TOWER_CLI_STEPS)
+    cmds = {
+        "fluid": ["fem_shell_tpu_torch.coupling.fluid_cli", str(xml), "43", steps],
+        "structure": ["fem_shell_tpu_torch.coupling.structure_cli", "-nu", str(nu), "-e", str(em), "-t", str(t),
+                      "-mesh", str(work / "tower.xda"), "-config", str(xml), "-dt", "0.01", "-axis", "y",
+                      "--steps", steps, "-out", str(work / "tower.e")]
+                     + ([] if device == "cuda" else ["--device", device]),
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m"] + c, cwd=work, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+    done = {}
+    try:
+        for k, proc in procs.items():
+            left = max(1.0, PEER_TIMEOUT_S - (time.perf_counter() - t0))
+            try:
+                out, err = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                for other in procs.values():
+                    other.kill()
+                out, err = proc.communicate()
+            done[k] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    secs = time.perf_counter() - t0
+    for k, (rc, out, err) in done.items():
+        lines = out.strip().splitlines()
+        print(f"  coupled cli {k}: rc={rc} {lines[-2:] if lines else err[-500:]}", flush=True)
+        gates.check(rc == 0, f"coupled cli: {k} exit {rc}")
+    n = TOWER_CLI_STEPS
+    diff, times = float("inf"), None
+    if (work / "tower.e").exists():
+        summ = read_exodus_summary(str(work / "tower.e"))
+        times = [float(v) for v in summ["times"]]
+        names = ("disp_x", "disp_y", "disp_z", "rot_x", "rot_y", "rot_z")
+        got = np.stack([summ["nodal_vars"][name] for name in names], axis=-1)
+        if got.shape == ref.solutions[:n].shape:
+            diff = float(np.abs(got - ref.solutions[:n]).max())
+    scale = float(np.abs(ref.solutions[:n]).max())
+    gates.check(times is not None and len(times) == n and diff <= 1e-12 * scale,
+                f"coupled cli: tower.e holds {None if times is None else len(times)} steps of {n}, "
+                f"displacements - 11(a)'s: max {diff:.3e} <= 1e-12 * {scale:.4e}")
+    return {"seconds": secs, "max_abs_diff": diff, "times": times,
+            "returncodes": {k: v[0] for k, v in done.items()},
+            "stdout": {k: v[1].strip().splitlines()[-3:] for k, v in done.items()},
+            "stderr": {k: v[2][-2000:] for k, v in done.items()}}
+
+
+def tower_scale_phase(gates, device="cuda", split=TOWER_SPLIT, steps=TOWER_SCALE_STEPS):
+    """11(c): the tower with each cell split ``split`` x ``split`` against
+    the unchanged 43-node dummy fluid, in-process, ``steps`` steps, twice
+    on ``device`` (the second with one step under torch.profiler): every
+    window converged under the XML's iteration cap, one elem_stiffness<3>
+    launch per run, two runs equal bit for bit, and the last step's u
+    within 1e-8 of max|u| of ShellSystem(...).solve of its load at rtol
+    1e-12."""
+    import threading
+
+    from fem_shell_tpu_torch import Material, MeshGenParams, ShellSystem, generate
+    from fem_shell_tpu_torch.coupling.adapter import interface_load, run_structure
+    from fem_shell_tpu_torch.coupling.config import parse_config
+    from fem_shell_tpu_torch.coupling.demo import CONFIG
+    from fem_shell_tpu_torch.coupling.fluid_dummy import run_fluid
+    from fem_shell_tpu_torch.coupling.m2n import InProcessTransport
+
+    cuda = torch.device(device).type == "cuda"
+    mesh, _, _ = generate(MeshGenParams(TOWER[0], TOWER[1] * split, TOWER[2] * split, *TOWER[3:]))
+    iface = mesh.coupling_node_ids()
+    nu, em, t = TOWER_MATERIAL
+    mat = Material(nu=nu, em=em, thickness=t)
+    cap = parse_config(CONFIG).scheme.max_iterations
+    tag = f"tower {split}x{split} split ({mesh.n_nodes} nodes, {mesh.n_elems} elements, {mesh.n_dofs} DOF, " \
+          f"{len(iface)} interface nodes)"
+    from torch.profiler import ProfilerActivity, profile
+
+    runs, recs, prof = [], [], {}
+    for k in range(2):
+        def on_timestep(step, sols, k=k):
+            if not (cuda and k == 1):
+                return
+            if step == 1:  # profile the next step's coupling iterations
+                torch.cuda.synchronize()
+                prof["p"] = profile(activities=[ProfilerActivity.CUDA])  # kernels only: ~10^5 launches
+                prof["p"].start()
+                prof["t0"] = time.perf_counter()
+            elif step == 2:
+                torch.cuda.synchronize()
+                prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+                prof["p"].stop()
+
+        ts, tf = InProcessTransport.pair()
+        fluid = threading.Thread(target=run_fluid, args=(CONFIG,), kwargs={"transport": tf, "max_timesteps": steps},
+                                 daemon=True)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        reset_launches()
+        fluid.start()
+        t0 = time.perf_counter()
+        res = run_structure(mesh, mat, CONFIG, dt=0.01, dead_axis="y", transport=ts, on_timestep=on_timestep,
+                            max_timesteps=steps, device=device)
+        rec = coupled_stats(res, time.perf_counter() - t0)
+        rec["launches"] = read_launches()
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base if cuda else None
+        rec["s_per_timestep"] = (rec["wall_s"] - rec["setup_s"]) / max(res.timesteps, 1)
+        fluid.join(timeout=PEER_TIMEOUT_S)
+        gates.check(not fluid.is_alive() and res.timesteps == steps,
+                    f"{tag} run {k}: {res.timesteps} of {steps} steps, the fluid finished")
+        gates.check(max(res.step_iterations, default=cap) < cap,
+                    f"{tag} run {k}: coupling iterations per step {res.step_iterations} < {cap}")
+        if cuda:
+            got = rec["launches"]
+            gates.check(got["elem3"] == 1 and got["elem4"] == 0,
+                        f"{tag} run {k}: elem_stiffness<3> launched {got['elem3']} time(s) (1)")
+        runs.append(res)
+        recs.append(rec)
+        print(f"  {tag} run {k}: {rec['wall_s']:.2f} s (set-up {rec['setup_s']:.3f} s, "
+              f"{rec['s_per_timestep']:.3f} s per step), steps {res.step_iterations}, "
+              f"{rec['cg_iterations_per_solve']:.1f} CG iterations per solve at {rec['ms_per_cg_iteration']} ms, "
+              f"peak {rec['peak_mem_bytes']}", flush=True)
+    a, b = runs
+    gates.check(np.array_equal(a.solutions, b.solutions) and a.iterations == b.iterations,
+                f"{tag}: two runs equal bit for bit")
+    reset_launches()
+    load = interface_load(mesh.n_nodes, iface, a.iface_forces[-1], 2, "y")
+    t0 = time.perf_counter()
+    direct = ShellSystem(mesh, mat, device=device)
+    u = direct.solve(load, rtol=1e-12).cpu().numpy()
+    direct_s = time.perf_counter() - t0
+    direct_launches = read_launches()
+    diff = float(np.abs(a.solutions[-1] - u).max())
+    scale = float(np.abs(u).max())
+    gates.check(diff <= 1e-8 * scale,
+                f"{tag}: last step - ShellSystem.solve(rtol=1e-12) of its load: max {diff:.3e} <= 1e-8 * {scale:.4e}")
+    profiled = None
+    if "p" in prof:
+        profiled = profile_summary(prof["p"], prof["wall_ms"])
+        print(f"  {tag} profiled step: wall {profiled['wall_ms']:.1f} ms, device busy "
+              f"{profiled['device_busy_ms']:.1f} ms, idle share {profiled['idle_share']}", flush=True)
+        for row in profiled["top"]:
+            print(f"    {row['ms']:9.3f} ms {row['count']:6d}x {row['kernel']}", flush=True)
+    return {"case": tag, "nodes": mesh.n_nodes, "elements": mesh.n_elems, "dof": mesh.n_dofs,
+            "interface_nodes": len(iface), "runs": recs, "direct_iters": int(direct.last_cg.iters),
+            "direct_s": direct_s, "direct_launches": direct_launches, "max_abs_diff_direct": diff,
+            "profiled_step": profiled}
+
+
+def recovery_phase(gates, fields, n=1024, device="cuda"):
+    """11(d): recover_stresses and recover_stresses_nodal on ``device`` on
+    phase 4's converged n x n tri and quad fields: the centre node's nodal
+    Mx, My and the element-centre peak moment against 0.0479 q a^2, the
+    nodal vm maximum against the corner twisting value, two calls equal
+    bit for bit; seconds and peak memory. Then on phase 3's 64x64 fields
+    the card's fields within RECOVERY_GATE of max|field| of the same calls
+    on the CPU."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.ops.recovery import recover_stresses, recover_stresses_nodal
+
+    cuda = torch.device(device).type == "cuda"
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    out = []
+    for et in ("t", "q"):
+        tag = f"{et}{n}"
+        mesh, u = fields[tag]
+        rec = {"case": tag, "elements": mesh.n_elems}
+        results = {}
+        for fn in (recover_stresses, recover_stresses_nodal):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if cuda else 0
+            t0 = time.perf_counter()
+            got = fn(mesh, mat, u, device=device)
+            rec[f"{fn.__name__}_s"] = time.perf_counter() - t0
+            rec[f"{fn.__name__}_peak_bytes"] = torch.cuda.max_memory_allocated() - base if cuda else None
+            again = fn(mesh, mat, u, device=device)
+            same = all(np.array_equal(getattr(got, f), getattr(again, f)) for f in STRESS_FIELDS)
+            gates.check(same, f"recovery {tag}: two {fn.__name__} calls equal bit for bit")
+            results[fn.__name__] = got
+        elem, nodal = results["recover_stresses"], results["recover_stresses_nodal"]
+        centre = mesh.n_nodes // 2
+        tol = RECOVERY_CENTRE_TOL[et]
+        mx, my = (abs(float(nodal.moments[centre, i])) for i in (0, 1))
+        peak = float(np.abs(elem.moments[:, :2]).max())
+        vm_max = float(nodal.vm.max())
+        gates.check(max(abs(mx - PLATE_M), abs(my - PLATE_M)) < tol * PLATE_M,
+                    f"recovery {tag}: centre nodal Mx {mx:.3f}, My {my:.3f} within {tol:.0%} of {PLATE_M:.1f}")
+        gates.check(abs(vm_max - PLATE_VM_CORNER) < 0.06 * PLATE_VM_CORNER,
+                    f"recovery {tag}: nodal vm max {vm_max:.1f} within 6 % of {PLATE_VM_CORNER:.1f}")
+        gates.check(abs(peak - PLATE_M) < 0.05 * PLATE_M,
+                    f"recovery {tag}: element-centre peak moment {peak:.3f} within 5 % of {PLATE_M:.1f}")
+        rec.update({"centre_mx": mx, "centre_my": my, "elem_peak_moment": peak, "nodal_vm_max": vm_max})
+        print(f"  recovery {tag}: {rec}", flush=True)
+        out.append(rec)
+    for et in ("t", "q"):
+        tag = f"{et}64"
+        mesh, u = fields[tag]
+        worst = 0.0
+        for fn in (recover_stresses, recover_stresses_nodal):
+            got, want = fn(mesh, mat, u, device=device), fn(mesh, mat, u, device="cpu")
+            for f in STRESS_FIELDS:
+                d, scale = (float(np.abs(x).max()) for x in (getattr(got, f) - getattr(want, f), getattr(want, f)))
+                # a flat plate's membrane stress is exactly zero on both devices
+                worst = max(worst, d / scale if scale > 0 else (0.0 if d == 0 else float("inf")))
+        gates.check(worst <= RECOVERY_GATE,
+                    f"recovery {tag}: {device} - cpu fields max {worst:.3e} of max|field| <= {RECOVERY_GATE:.0e}")
+        out.append({"case": tag, "max_rel_diff_cpu": worst})
+    return out
+
+
+def stress_cli_phase(gates, device="cuda"):
+    """11(e): python -m fem_shell_tpu_torch.utils.cli --stress in three
+    concurrent subprocesses on ``device``: a 64x64 plate from .xda, the
+    same plate written as .xdr, and the thesis example from .msh (with
+    nodal moments on its free rotations): exit 0, and every .vtu point and cell array
+    equal bit for bit to the library calls on the same files
+    (ShellSystem.solve, recover_stresses, recover_stresses_nodal,
+    to_mesh_order)."""
+    import os
+    import re
+    import shutil
+
+    from fem_shell_tpu_torch import Material, MeshGenParams, ShellSystem
+    from fem_shell_tpu_torch.mesh import load_mesh_and_forces, read_xda, write_xdr
+    from fem_shell_tpu_torch.meshgen import write_files
+    from fem_shell_tpu_torch.ops.recovery import recover_stresses, recover_stresses_nodal, to_mesh_order
+
+    work = OUT_DIR / "cli_stress"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    write_files(MeshGenParams("q", 64, 64, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z"), str(work / "plate"))
+    write_xdr(read_xda(str(work / "plate.xda")), str(work / "platex.xdr"))
+    shutil.copy(work / "plate_f", work / "platex_f")
+    (work / "thesis.msh").write_text(
+        "$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n4\n1 -1.0 -1.0 0.0\n2 1.0 -1.0 0.0\n"
+        "3 -1.0 1.0 0.0\n4 1.0 1.0 0.0\n$EndNodes\n$Elements\n6\n1 2 2 0 0 1 2 3\n2 2 2 0 0 2 4 3\n"
+        "3 15 2 0 0 1\n4 15 2 0 0 2\n5 15 2 1 0 3\n6 15 2 1 0 4\n$EndElements\n")
+    (work / "thesis_f").write_text("4\n1\n0 0 0 1 0.5 0\n0 0 0 -0.5 1 0.2\n0 0 0 0 0 0\n0 0 0 0 0 0\n")
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    names = ("plate.xda", "platex.xdr", "thesis.msh")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", "fem_shell_tpu_torch.utils.cli", "-nu", "0.3", "-e",
+                                     "1e7", "-t", "0.5", "-mesh", str(work / name), "-out",
+                                     str(work / (name.replace(".", "_") + "_out")), "--stress"]
+                                    + ([] if device == "cuda" else ["--device", device]),
+                                    cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in names}  # the three routes at once
+    done = {}
+    try:
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=max(1.0, PEER_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            done[name] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    secs = time.perf_counter() - t0
+    rows = []
+    for name in names:
+        path = str(work / name)
+        out_base = str(work / (name.replace(".", "_") + "_out"))
+        rc, stdout, stderr = done[name]
+        ok = rc == 0 and os.path.exists(out_base + ".vtu")
+        gates.check(ok, f"cli --stress {name}: exit {rc}, .vtu written")
+        mesh, forces = load_mesh_and_forces(path)
+        u = ShellSystem(mesh, mat, device=device).solve(forces, rtol=1e-10, maxiter=20000).cpu().numpy()
+        field = recover_stresses(mesh, mat, u, device=device)
+        nodal = recover_stresses_nodal(mesh, mat, u, device=device)
+        want = {"PointData": {"von_mises": nodal.vm, "moments": nodal.moments, "sigma_membrane": nodal.sigma_m,
+                              "displacement": u[:, :3], "rotation": u[:, 3:]},
+                "CellData": {"von_mises": to_mesh_order(mesh, field.vm),
+                             "moments": to_mesh_order(mesh, field.moments),
+                             "sigma_membrane": to_mesh_order(mesh, field.sigma_m)}}
+        diffs = {}
+        if ok:
+            txt = open(out_base + ".vtu").read()
+            for sec, arrays in want.items():
+                body = re.search(f"<{sec}>(.*?)</{sec}>", txt, re.S).group(1)
+                got = dict(re.findall(r'Name="(\w+)"[^>]*format="ascii">\n(.*?)</DataArray>', body, re.S))
+                for key, arr in arrays.items():
+                    vals = np.array([float(v) for v in got.get(key, "").split()])
+                    diffs[f"{sec}/{key}"] = (float(np.abs(vals - np.asarray(arr).reshape(-1)).max())
+                                             if vals.size == np.asarray(arr).size else float("inf"))
+        worst = max(diffs.values(), default=float("inf"))
+        gates.check(worst == 0.0, f"cli --stress {name}: every .vtu array - library call: max {worst:.3e} (0)")
+        lines = stdout.strip().splitlines()
+        print(f"  cli --stress {name}: rc={rc}, {[ln for ln in lines if 'von Mises' in ln] or stderr[-500:]}",
+              flush=True)
+        rows.append({"mesh": name, "returncode": rc, "max_abs_diff": worst, "stdout": lines[-4:],
+                     "stderr": stderr[-2000:]})
+    print(f"  cli --stress: three subprocesses in {secs:.2f} s", flush=True)
+    return {"seconds": secs, "runs": rows}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2606,11 +3072,13 @@ def main() -> int:
     ecases = elem_case_phase(gates)
 
     print("phase 3: Test-G (64x64, rtol 1e-9)", flush=True)
-    runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et])
+    fields = {}  # (mesh, u) of the Test-G solves, for phase 11's stress recovery
+    runs = [solve_phase(gates, et, 64, reps=3, golden=GOLDEN[et], jax_iters=JAX_F64_ITERS[et], keep=fields)
             for et in ("q", "t")]
 
     print("phase 4: scale (1024x1024 tri and quad)", flush=True)
-    runs += [solve_phase(gates, et, 1024, reps=2, golden=KIRCHHOFF, gate_rel=1e-3) for et in ("t", "q")]
+    runs += [solve_phase(gates, et, 1024, reps=2, golden=KIRCHHOFF, gate_rel=1e-3, keep=fields)
+             for et in ("t", "q")]
 
     print("phase 5: scale path, class operator (1024x1024 tri, solve_df_refined)", flush=True)
     class_runs = [class_solve_phase(gates, "t", 1024)]
@@ -2652,6 +3120,31 @@ def main() -> int:
     large_routes = large_routes_phase(gates)
     ucli = unstructured_cli_phase(gates)
     unstructured = [gather, amg64, amg32] + large_routes
+
+    print("phase 11: the coupled solver and stress recovery (the tower demo, the coupled CLIs over TCP, the "
+          f"tower split {TOWER_SPLIT}x{TOWER_SPLIT}, recovery at 1024^2, the --stress CLI)", flush=True)
+    t11, phase11_s = time.perf_counter(), {}
+
+    def lap(key):
+        nonlocal t11
+        phase11_s[key] = time.perf_counter() - t11
+        t11 = time.perf_counter()
+
+    tower, tower_run = tower_demo_phase(gates)
+    lap("a")
+    coupled_cli = coupled_cli_phase(gates, tower_run)
+    lap("b")
+    del tower_run
+    tower_scale = tower_scale_phase(gates)
+    lap("c")
+    recovery = recovery_phase(gates, fields)
+    lap("d")
+    del fields
+    stress_cli = stress_cli_phase(gates)
+    lap("e")
+    print(f"  phase11_s={sum(phase11_s.values()):.1f} {phase11_s}", flush=True)
+    coupled_elem3 = (sum(r["launches"]["elem3"] for r in tower["runs"] + tower_scale["runs"])
+                     + tower_scale["direct_launches"]["elem3"])
 
     entries = []
     for dtype, meta in KERNELS.items():
@@ -2726,7 +3219,8 @@ def main() -> int:
                          + sum(r["launches"][key] for r in roof_goldens)
                          + sum(r["launches_total"][key] for r in roof_runs)
                          + gather["launches"][key] + amg64["ctor_launches"][key]
-                         + amg32["ctor_launches"][key] + sum(r["launches"][key] for r in large_routes)),
+                         + amg32["ctor_launches"][key] + sum(r["launches"][key] for r in large_routes)
+                         + (coupled_elem3 if m == 3 else 0)),
             "max_abs_err": max(r["max_abs_err"] for r in mine + cases),
             "max_rel_err": max(r["rel_err"] for r in mine + cases),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -2747,7 +3241,9 @@ def main() -> int:
          "elem_cases": ecases, "goldens": goldens, "systems": systems, "ell_matvec_scale": ell_scale,
          "mg_solves": mg_runs, "cli": clis, "roof_goldens": roof_goldens, "roof": roof,
          "roof_cycles": cycles, "galerkin_fused": fused_gal, "roof_pairs": roof_pairs,
-         "unstructured": unstructured, "unstructured_cli": ucli},
+         "unstructured": unstructured, "unstructured_cli": ucli,
+         "coupled": {"phase11_s": phase11_s, "tower_demo": tower, "coupled_cli": coupled_cli,
+                     "tower_scale": tower_scale, "recovery": recovery, "stress_cli": stress_cli}},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

@@ -3,8 +3,9 @@
 A second package beside the JAX reference: the same flat-shell finite
 elements, block-ELL stand-alone solver (ShellSystem), SoA operator
 (stencil and gather mode, LargeShellSystem), geometric multigrid and
-smoothed-aggregation AMG (amg.AMGShellSystem, unstructured meshes), run
-with PyTorch on an NVIDIA GPU (Hopper,
+smoothed-aggregation AMG (amg.AMGShellSystem, unstructured meshes), the
+coupled FSI structure solver (coupling/) and stress recovery
+(ops/recovery.py), run with PyTorch on an NVIDIA GPU (Hopper,
 sm_90a), with every kernel of the JAX package's Pallas code as a
 hand-written CUDA kernel (csrc/). It imports nothing of
 JAX or of fem_shell_tpu. Entry points run on CUDA unless the caller

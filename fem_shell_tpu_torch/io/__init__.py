@@ -1,1 +1,1 @@
-"""Result writers of the port (VTK, ExodusII)."""
+"""Result writers of the port (VTK, ExodusII) and the Gmsh reader."""

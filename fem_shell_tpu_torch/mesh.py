@@ -25,13 +25,18 @@ writes, byte for byte as the JAX package's writers do.
 
 Node reordering and refinement: ``rcm_order`` (reverse Cuthill-McKee,
 scipy's or a pure-numpy fallback), ``permute_nodes``, ``refine_uniform``
-and ``bandwidth``, element for element as the JAX package's. XDR and
-Gmsh input and output are not ported yet (ROADMAP.md, Queue 1).
+and ``bandwidth``, element for element as the JAX package's.
+
+Other formats the reference accepts (fem-shell.cpp:45-47): libMesh's XDR
+binary encoding of the XDA record stream (``read_xdr``, ``write_xdr``)
+and Gmsh 2.x ASCII (``io/gmsh.py``), chosen by ``read_mesh`` from the
+file's extension.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import struct
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +52,7 @@ QUAD_SIDES = ((0, 1), (1, 2), (2, 3), (3, 0))
 # Dirichlet semantics (fem-shell.cpp:90-120)
 SIMPLY_SUPPORTED_IDS = (0, 20)  # constrain u,v,w
 CLAMPED_IDS = (1, 21)  # constrain all 6 dofs
+COUPLING_IDS = (2, 20, 21)  # FSI interface node discovery
 
 
 @dataclasses.dataclass
@@ -127,6 +133,9 @@ class ShellMesh:
             mask |= np.asarray(self.node_dirichlet_mask, bool)
         return mask
 
+    def coupling_node_ids(self) -> np.ndarray:
+        """FSI interface nodes: bc ids 2/20/21 (fem-shell_precice.cpp:62-70)."""
+        return self.boundary_node_ids(COUPLING_IDS)
 
     def adjacency_coo(self) -> Tuple[np.ndarray, np.ndarray]:
         """All (row, col) node-coupling pairs from the connectivity
@@ -421,13 +430,112 @@ def read_forces(path: str, n_nodes: int) -> np.ndarray:
     return forces[:n_nodes]
 
 
+# ----------------------------------------------------------------------
+# XDR (binary XDA) reader / writer
+# ----------------------------------------------------------------------
+#
+# .xdr is libMesh's XDR-binary encoding of the record stream the ASCII XDA
+# carries. Encoding follows RFC 4506 primitives as libMesh's Xdr class
+# uses them: 4-byte big-endian ints, 8-byte big-endian IEEE doubles,
+# strings as (u32 length + bytes + zero padding to a 4-byte boundary).
+
+
+def _xdr_pack_str(s: str) -> bytes:
+    b = s.encode()
+    pad = (-len(b)) % 4
+    return struct.pack(">i", len(b)) + b + b"\0" * pad
+
+
+class _XdrReader:
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+
+    def ints(self, n: int):
+        out = struct.unpack_from(f">{n}i", self.data, self.pos)
+        self.pos += 4 * n
+        return out
+
+    def doubles(self, n: int):
+        out = struct.unpack_from(f">{n}d", self.data, self.pos)
+        self.pos += 8 * n
+        return out
+
+    def string(self) -> str:
+        (n,) = self.ints(1)
+        s = self.data[self.pos : self.pos + n].decode()
+        self.pos += n + ((-n) % 4)
+        return s
+
+
+def write_xdr(mesh: ShellMesh, path: str) -> None:
+    """Binary XDR counterpart of write_xda: the same record stream,
+    XDR-encoded. Round-trips bit-exactly (coordinates are stored as raw
+    f64, unlike the 6-significant-digit ASCII formatting)."""
+    out = [_xdr_pack_str("libMesh-0.7.0+")]
+    out.append(struct.pack(">2i", mesh.n_elems, mesh.n_nodes))
+    for s in (".", "n/a", "n/a", "n/a"):
+        out.append(_xdr_pack_str(s))
+    out.append(struct.pack(">i", mesh.n_elems))
+    for e in range(mesh.n_elems):
+        t = int(mesh.elem_types[e])
+        nn = _NODES_PER_TYPE[t]
+        conn = [int(v) for v in mesh.elem_conn[e, :nn]]
+        out.append(struct.pack(f">{1 + nn}i", t, *conn))
+    out.append(struct.pack(f">{3 * mesh.n_nodes}d", *mesh.coords.reshape(-1)))
+    out.append(struct.pack(">i", len(mesh.boundary_sides)))
+    if len(mesh.boundary_sides):
+        out.append(struct.pack(f">{3 * len(mesh.boundary_sides)}i",
+                               *mesh.boundary_sides.astype(np.int64).reshape(-1)))
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))
+
+
+def read_xdr(path: str) -> ShellMesh:
+    """Parse the XDR-binary mesh format written by write_xdr."""
+    with open(path, "rb") as fh:
+        r = _XdrReader(fh.read())
+    header = r.string()
+    if not header.startswith("libMesh"):
+        raise ValueError(f"{path}: not a libMesh XDR file (header {header!r})")
+    n_elem, n_nodes = r.ints(2)
+    for _ in range(4):
+        r.string()  # bc / subdomain / processor / p-level spec files
+    (n_elem0,) = r.ints(1)
+    if n_elem0 != n_elem:
+        raise ValueError(f"{path}: level-0 element count mismatch")
+    elem_types = np.empty(n_elem, dtype=np.int32)
+    elem_conn = np.full((n_elem, 4), -1, dtype=np.int32)
+    for e in range(n_elem):
+        (t,) = r.ints(1)
+        if t not in _NODES_PER_TYPE:
+            raise ValueError(f"{path}: unsupported XDR element type {t}")
+        nn = _NODES_PER_TYPE[t]
+        elem_types[e] = t
+        elem_conn[e, :nn] = r.ints(nn)
+    coords = np.array(r.doubles(3 * n_nodes), dtype=np.float64).reshape(n_nodes, 3)
+    (n_bc,) = r.ints(1)
+    bcs = (np.array(r.ints(3 * n_bc), dtype=np.int32).reshape(n_bc, 3) if n_bc
+           else np.zeros((0, 3), np.int32))
+    return ShellMesh(coords, elem_types, elem_conn, bcs)
+
+
+def read_mesh(path: str) -> ShellMesh:
+    """Format-dispatching mesh reader: .xda (libMesh ASCII), .xdr
+    (libMesh binary), or .msh (Gmsh 2.x), the formats the reference
+    accepts (fem-shell.cpp:45-47)."""
+    if path.endswith(".msh"):
+        from fem_shell_tpu_torch.io.gmsh import read_msh
+
+        return read_msh(path)
+    if path.endswith(".xdr"):
+        return read_xdr(path)
+    return read_xda(path)
+
+
 def load_mesh_and_forces(mesh_path: str) -> Tuple[ShellMesh, np.ndarray]:
-    """Load an ``.xda`` mesh plus its ``_f`` force file (zeros if absent)."""
-    if not mesh_path.endswith(".xda"):
-        raise NotImplementedError(
-            f"{mesh_path}: only .xda meshes are ported so far (.xdr/.msh: ROADMAP.md Queue 1)"
-        )
-    mesh = read_xda(mesh_path)
+    """Load a mesh plus its conventional ``_f`` force file (zeros if absent)."""
+    mesh = read_mesh(mesh_path)
     fpath = force_path_for(mesh_path)
     if os.path.exists(fpath):
         forces = read_forces(fpath, mesh.n_nodes)

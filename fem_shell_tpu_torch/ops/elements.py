@@ -112,13 +112,13 @@ def _quad_frame(xyz):
 # ----------------------------------------------------------------------
 
 
-def _tri_membrane(dphi, area, dm, thickness):
-    """CST membrane [E,6,6] over (u1,v1,u2,v2,u3,v3); fem-shell.cpp:445-468."""
+def _tri_membrane_b(dphi, area):
+    """CST strain matrix B [E,3,6] over (u1,v1,u2,v2,u3,v3); fem-shell.cpp:445-468."""
     x12, y12 = dphi[:, 0, 0], dphi[:, 0, 1]
     x31, y31 = dphi[:, 1, 0], dphi[:, 1, 1]
     x23, y23 = dphi[:, 2, 0], dphi[:, 2, 1]
     z = torch.zeros_like(x12)
-    b_m = torch.stack(
+    return torch.stack(
         [
             torch.stack([y23, z, y31, z, y12, z], dim=-1),
             torch.stack([z, -x23, z, -x31, z, -x12], dim=-1),
@@ -126,48 +126,55 @@ def _tri_membrane(dphi, area, dm, thickness):
         ],
         dim=1,
     ) / (2.0 * area)[:, None, None]
-    return (thickness * area)[:, None, None] * _btdb(b_m, dm)
+
+
+def _tri_membrane(dphi, area, dm, thickness):
+    """CST membrane [E,6,6] over (u1,v1,u2,v2,u3,v3); fem-shell.cpp:445-468."""
+    return (thickness * area)[:, None, None] * _btdb(_tri_membrane_b(dphi, area), dm)
+
+
+def _quad_shape_derivs(r: float, s: float):
+    """Bilinear shape-function derivatives wrt (r, s) at one point, as
+    4-tuples of floats; fem-shell.cpp:494-502."""
+    dhdr = (-0.25 * (1 - s), 0.25 * (1 - s), 0.25 * (1 + s), -0.25 * (1 + s))
+    dhds = (-0.25 * (1 - r), -0.25 * (1 + r), 0.25 * (1 + r), 0.25 * (1 - r))
+    return dhdr, dhds
+
+
+def _quad_membrane_b(local_xy, r: float, s: float):
+    """Bilinear isoparametric strain matrix B [E,3,8] (interleaved (u_i,
+    v_i)) and Jacobian determinant [E] at (r, s); fem-shell.cpp:469-541."""
+    lx, ly = local_xy[:, 0], local_xy[:, 1]
+    dtype, device = local_xy.dtype, local_xy.device
+    dhdr, dhds = (torch.tensor(d, dtype=dtype, device=device) for d in _quad_shape_derivs(r, s))
+    j00 = lx @ dhdr
+    j01 = ly @ dhdr
+    j10 = lx @ dhds
+    j11 = ly @ dhds
+    det = j00 * j11 - j01 * j10
+    z = torch.zeros_like(det)
+    b3x4 = torch.stack(
+        [
+            torch.stack([j11, -j01, z, z], dim=-1),
+            torch.stack([z, z, -j10, j00], dim=-1),
+            torch.stack([-j10, j00, j11, -j01], dim=-1),
+        ],
+        dim=1,
+    ) / det[:, None, None]
+    g = torch.zeros((4, 8), dtype=dtype, device=device)
+    g[0, 0::2] = dhdr
+    g[1, 0::2] = dhds
+    g[2, 1::2] = dhdr
+    g[3, 1::2] = dhds
+    return b3x4 @ g, det
 
 
 def _quad_membrane(local_xy, dm, thickness):
     """Bilinear isoparametric membrane [E,8,8], interleaved (u_i, v_i);
     2x2 Gauss loop of fem-shell.cpp:469-541."""
-    lx, ly = local_xy[:, 0], local_xy[:, 1]
-    dtype, device = local_xy.dtype, local_xy.device
-    g_rows = torch.zeros((4, 8), dtype=dtype, device=device)
     out = None
     for r0, s0 in _QUAD_QPS:
-        r = r0 * _GAUSS_ROOT
-        s = s0 * _GAUSS_ROOT
-        # bilinear shape-function derivatives wrt (r,s); fem-shell.cpp:494-502
-        dhdr = torch.tensor(
-            [-0.25 * (1 - s), 0.25 * (1 - s), 0.25 * (1 + s), -0.25 * (1 + s)],
-            dtype=dtype, device=device,
-        )
-        dhds = torch.tensor(
-            [-0.25 * (1 - r), -0.25 * (1 + r), 0.25 * (1 + r), 0.25 * (1 - r)],
-            dtype=dtype, device=device,
-        )
-        j00 = lx @ dhdr
-        j01 = ly @ dhdr
-        j10 = lx @ dhds
-        j11 = ly @ dhds
-        det = j00 * j11 - j01 * j10
-        z = torch.zeros_like(det)
-        b3x4 = torch.stack(
-            [
-                torch.stack([j11, -j01, z, z], dim=-1),
-                torch.stack([z, z, -j10, j00], dim=-1),
-                torch.stack([-j10, j00, j11, -j01], dim=-1),
-            ],
-            dim=1,
-        ) / det[:, None, None]
-        g = g_rows.clone()
-        g[0, 0::2] = dhdr
-        g[1, 0::2] = dhds
-        g[2, 1::2] = dhdr
-        g[3, 1::2] = dhds
-        b_m = b3x4 @ g
+        b_m, det = _quad_membrane_b(local_xy, r0 * _GAUSS_ROOT, s0 * _GAUSS_ROOT)
         term = (det * thickness)[:, None, None] * _btdb(b_m, dm)
         out = term if out is None else out + term
     return out
@@ -276,15 +283,13 @@ def _eval_b_tri(side_sq, l1, l2, dphi):
     return torch.stack([row0, row1, row2], dim=1)
 
 
-def _tri_plate(dphi, area, dp):
-    """Specht plate bending [E,9,9] over (w_i, tx_i, ty_i); fem-shell.cpp:555-603."""
-    side_sq = (dphi**2).sum(dim=-1)  # AB, AC, BC
+def _tri_curvature_map(dphi, area):
+    """The Specht auxiliary matrix Y [E,3,3] mapping area-coordinate second
+    derivatives to physical curvatures. NOTE: Y[2,1] matches the reference
+    literally (fem-shell.cpp:586 uses dphi(1,0)*dphi(1,0))."""
     x31, y31 = dphi[:, 1, 0], dphi[:, 1, 1]
     x23, y23 = dphi[:, 2, 0], dphi[:, 2, 1]
-    # auxiliary matrix mapping area-coordinate 2nd derivatives to physical
-    # curvatures. NOTE: Y[2,1] matches the reference literally
-    # (fem-shell.cpp:586 uses dphi(1,0)*dphi(1,0)).
-    y = torch.stack(
+    return torch.stack(
         [
             torch.stack([y23**2, y31**2, y23 * y31], dim=-1),
             torch.stack([x23**2, x31**2, x31 * x23], dim=-1),
@@ -294,6 +299,12 @@ def _tri_plate(dphi, area, dp):
         ],
         dim=1,
     ) / (4.0 * area**2)[:, None, None]
+
+
+def _tri_plate(dphi, area, dp):
+    """Specht plate bending [E,9,9] over (w_i, tx_i, ty_i); fem-shell.cpp:555-603."""
+    side_sq = (dphi**2).sum(dim=-1)  # AB, AC, BC
+    y = _tri_curvature_map(dphi, area)
     ke = None
     for l1, l2 in _TRI_QPS:
         yb = y @ _eval_b_tri(side_sq, l1, l2, dphi)
@@ -357,11 +368,12 @@ def _eval_b_quad(h, xi, eta, jinv):
     return torch.stack([row0, row1, row2], dim=1)
 
 
-def _quad_plate(dphi, dp):
-    """DKQ plate bending [E,12,12] over (w_i, tx_i, ty_i); fem-shell.cpp:604-688."""
+def _dkq_coeffs(dphi):
+    """The DKQ coefficient table h [E,5,4] ([a,b,c,d,e] x sides) from the
+    local edge differences; fem-shell.cpp:613-621."""
     side_sq = (dphi**2).sum(dim=-1)  # squared side lengths AB,BC,CD,DA
     dx, dy = dphi[:, :, 0], dphi[:, :, 1]
-    h = torch.stack(
+    return torch.stack(
         [
             -dx / side_sq,  # a_k
             0.75 * dx * dy / side_sq,  # b_k
@@ -371,18 +383,31 @@ def _quad_plate(dphi, dp):
         ],
         dim=1,
     )
+
+
+def _dkq_jacobian_inv(dphi, r: float, s: float):
+    """Inverse Jacobian [E,2,2] and determinant [E] of the DKQ
+    parametrization at (r, s)."""
+    dx, dy = dphi[:, :, 0], dphi[:, :, 1]
+    j00 = 0.25 * ((dx[:, 0] + dx[:, 2]) * s - dx[:, 0] + dx[:, 2])
+    j01 = 0.25 * ((dy[:, 0] + dy[:, 2]) * s - dy[:, 0] + dy[:, 2])
+    j10 = 0.25 * ((dx[:, 0] + dx[:, 2]) * r - dx[:, 1] + dx[:, 3])
+    j11 = 0.25 * ((dy[:, 0] + dy[:, 2]) * r - dy[:, 1] + dy[:, 3])
+    det = j00 * j11 - j01 * j10
+    jinv = torch.stack(
+        [torch.stack([j11, -j01], dim=-1), torch.stack([-j10, j00], dim=-1)], dim=1
+    ) / det[:, None, None]
+    return jinv, det
+
+
+def _quad_plate(dphi, dp):
+    """DKQ plate bending [E,12,12] over (w_i, tx_i, ty_i); fem-shell.cpp:604-688."""
+    h = _dkq_coeffs(dphi)
     ke = None
     for r0, s0 in _QUAD_QPS:
         r = r0 * _GAUSS_ROOT
         s = s0 * _GAUSS_ROOT
-        j00 = 0.25 * ((dx[:, 0] + dx[:, 2]) * s - dx[:, 0] + dx[:, 2])
-        j01 = 0.25 * ((dy[:, 0] + dy[:, 2]) * s - dy[:, 0] + dy[:, 2])
-        j10 = 0.25 * ((dx[:, 0] + dx[:, 2]) * r - dx[:, 1] + dx[:, 3])
-        j11 = 0.25 * ((dy[:, 0] + dy[:, 2]) * r - dy[:, 1] + dy[:, 3])
-        det = j00 * j11 - j01 * j10
-        jinv = torch.stack(
-            [torch.stack([j11, -j01], dim=-1), torch.stack([-j10, j00], dim=-1)], dim=1
-        ) / det[:, None, None]
+        jinv, det = _dkq_jacobian_inv(dphi, r, s)
         b = _eval_b_quad(h, r, s, jinv)
         term = det[:, None, None] * _btdb(b, dp)
         ke = term if ke is None else ke + term

@@ -1,1 +1,1 @@
-"""Command-line tools of the port."""
+"""Command-line tools and profiling helpers of the port."""

@@ -7,7 +7,8 @@ The reference flag surface (fem-shell.cpp:194-267):
   -nu    Poisson's ratio (required)
   -e     Young's modulus E (required)
   -t     thickness (required)
-  -mesh  input mesh file (*.xda, required; *_f force file by convention)
+  -mesh  input mesh file (*.xda, *.xdr or *.msh, required; *_f force file
+         by convention)
   -out   output file base name (optional; writes <out>.vtu, <out>.vtk and
          <out>.e)
   -d     debug output 1|0
@@ -34,10 +35,13 @@ exit codes and output files:
               amg or without mg: solve_df_refined on the true residual
   --f32       with --precond amg: the f32 cycle and CG (AMGShellSystem
               dtype=float32)
+  --stress    with -out: recover element-center and nodal stresses
+              (ops/recovery.py, on --device) into the .vtu cell and point
+              data and the .vtk point data
   --device    cuda (default) | cpu
 
 Flags whose path is not ported yet print an ERROR naming ROADMAP.md and
-exit 2: --devices > 1, --stress, and --f32 outside --precond amg.
+exit 2: --devices > 1, and --f32 outside --precond amg.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ def _parse(argv: List[str]):
     ap.add_argument("-nu", type=float, required=True, help="Poisson's ratio")
     ap.add_argument("-e", type=float, required=True, help="Young's modulus E")
     ap.add_argument("-t", type=float, required=True, help="thickness")
-    ap.add_argument("-mesh", required=True, help="input mesh (*.xda)")
+    ap.add_argument("-mesh", required=True, help="input mesh (*.xda, *.xdr, *.msh)")
     ap.add_argument("-out", default=None, help="output base name (optional)")
     ap.add_argument("-d", type=int, default=0, help="debug messages 1|0")
     ap.add_argument("--rtol", type=float, default=1e-10)
@@ -71,7 +75,8 @@ def _parse(argv: List[str]):
     )
     ap.add_argument("--reorder", choices=("rcm",), default=None,
                     help="bandwidth-reduce the node numbering (reverse Cuthill-McKee) before solving")
-    ap.add_argument("--stress", action="store_true", help="not ported yet")
+    ap.add_argument("--stress", action="store_true",
+                    help="with -out: write von Mises, moments and membrane stresses (cell + point data)")
     ap.add_argument("--f32", action="store_true", help="with --precond amg: f32 cycle and CG")
     ap.add_argument(
         "--df",
@@ -97,8 +102,6 @@ def _unported(args) -> Optional[str]:
     N', or None."""
     if args.devices > 1:
         return "--devices > 1 (sharded solves) is not ported yet (ROADMAP.md Queue 1 item 9)"
-    if args.stress:
-        return "--stress (stress recovery) is not ported yet (ROADMAP.md Queue 1 item 10)"
     if args.f32 and args.precond != "amg":
         item = 6 if args.precond == "mg" else 11
         return f"--f32 (f32 assembly) is not ported yet (ROADMAP.md Queue 1 item {item})"
@@ -216,8 +219,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("]")
 
     if args.out:
-        write_vtu(mesh, args.out + ".vtu", displacement=u, displace=True)
-        write_legacy_vtk(mesh, args.out + ".vtk", displacement=u, displace=True)
+        point_data = {}
+        cell_data = {}
+        if args.stress:
+            from fem_shell_tpu_torch.ops.recovery import (
+                recover_stresses,
+                recover_stresses_nodal,
+                to_mesh_order,
+            )
+
+            field = recover_stresses(mesh, material, u, device=device)
+            nodal = recover_stresses_nodal(mesh, material, u, device=device)
+            point_data["von_mises"] = nodal.vm
+            point_data["moments"] = nodal.moments
+            point_data["sigma_membrane"] = nodal.sigma_m
+            cell_data["von_mises"] = to_mesh_order(mesh, field.vm)
+            cell_data["moments"] = to_mesh_order(mesh, field.moments)
+            cell_data["sigma_membrane"] = to_mesh_order(mesh, field.sigma_m)
+            print(f"Stress recovery: peak von Mises {nodal.vm.max():.6g} "
+                  f"(nodal), {field.vm.max():.6g} (element centers)")
+        write_vtu(mesh, args.out + ".vtu", displacement=u, displace=True, point_data=point_data,
+                  cell_data=cell_data)
+        write_legacy_vtk(mesh, args.out + ".vtk", displacement=u, displace=True, point_data=point_data)
         wrote = [args.out + ".vtu", args.out + ".vtk"]
         try:
             from fem_shell_tpu_torch.io.exodus import write_exodus

@@ -17,6 +17,7 @@ utils/cli.py) against the JAX package's, on the CPU.
   ``--reorder rcm``; ``--df`` and ``--refined`` without ``--precond mg``)
   print the JAX CLI's lines and write its .vtu arrays (tolerances at
   ``UNSTRUCTURED``);
+- ``--stress`` writes the JAX CLI's recovered point and cell data;
 - every flag whose path is not ported exits 2 with an ERROR naming
   ROADMAP.md.
 """
@@ -185,8 +186,7 @@ def test_solver_cli_unstructured_routes_match_jax(tmp_path, capsys, route):
         assert np.abs(vt["displacement"].reshape(-1, 3) - u[:, :3]).max() <= 1e-10 * np.abs(u[:, :3]).max()
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--stress"], ["--f32"]],
-                         ids=["devices", "stress", "f32"])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--f32"]], ids=["devices", "f32"])
 def test_unported_flag_exits_2(tmp_path, capsys, flag):
     base = str(tmp_path / "plate")
     meshgen(PLATE.split() + [base])
@@ -194,3 +194,38 @@ def test_unported_flag_exits_2(tmp_path, capsys, flag):
     assert rc == 2 and len(out) == 1
     assert out[0].startswith("ERROR: ") and "not ported yet (ROADMAP.md Queue 1 item" in out[0]
     assert not (tmp_path / "plate.vtu").exists()
+
+
+def _vtu_sections(path):
+    """{"PointData": {name: array}, "CellData": {name: array}} of a .vtu."""
+    txt = open(path).read()
+    out = {}
+    for sec in ("PointData", "CellData"):
+        body = re.search(f"<{sec}>(.*?)</{sec}>", txt, re.S).group(1)
+        out[sec] = {name: np.array([float(v) for v in vals.split()]) for name, vals in
+                    re.findall(r'Name="(\w+)"[^>]*format="ascii">\n(.*?)</DataArray>', body, re.S)}
+    return out
+
+
+def test_stress_route_matches_jax(tmp_path, capsys):
+    """--stress: the printed peak von Mises and the .vtu point data
+    (nodal recovery) and cell data (element centres, mesh order) against
+    the JAX CLI's, to 1e-10 of the largest of each array (the JAX
+    recovery traces op by op, ~10 s, so one plate)."""
+    base = str(tmp_path / "plate")
+    meshgen(PLATE.split() + [base])
+    rc_j, jout = _run(jcli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_j", "--stress"], capsys)
+    rc_t, tout = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_t", "--stress",
+                                       "--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0 and len(jout) == len(tout) and tout[-1] == "All done :)"
+    (lj,), (lt,) = ([ln for ln in out if ln.startswith("Stress recovery: peak von Mises")] for out in (jout, tout))
+    assert _NUM.sub("#", lj) == _NUM.sub("#", lt)
+    np.testing.assert_allclose([float(v) for v in _NUM.findall(lt)], [float(v) for v in _NUM.findall(lj)],
+                               rtol=1e-5)
+    vj, vt = _vtu_sections(base + "_j.vtu"), _vtu_sections(base + "_t.vtu")
+    assert set(vt["CellData"]) == {"von_mises", "moments", "sigma_membrane"}
+    assert set(vt["PointData"]) == set(vt["CellData"]) | {"displacement", "rotation"}
+    for sec in vj:
+        assert vj[sec].keys() == vt[sec].keys()
+        for name in vj[sec]:
+            assert np.abs(vj[sec][name] - vt[sec][name]).max() <= 1e-10 * np.abs(vj[sec][name]).max(), name

@@ -32,5 +32,18 @@ def test_xda_flow_matches_jax(tmp_path):
     np.testing.assert_array_equal(tm.elem_conn, jm.elem_conn)
     np.testing.assert_array_equal(tm.dirichlet_mask(), jm.dirichlet_mask())
     np.testing.assert_array_equal(tf, jf)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmesh_mod.load_mesh_and_forces(base + ".msh")
+    # the same mesh as Gmsh 2.x (triangles, boundary points with bc 0)
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes", str(tm.n_nodes)]
+    lines += [f"{i + 1} {float(x)!r} {float(y)!r} {float(z)!r}" for i, (x, y, z) in enumerate(tm.coords)]
+    bc = tm.boundary_node_ids([0])
+    lines += ["$EndNodes", "$Elements", str(len(tm.tri) + len(bc))]
+    lines += [f"{e + 1} 2 2 0 0 " + " ".join(str(v + 1) for v in t) for e, t in enumerate(tm.tri)]
+    lines += [f"{len(tm.tri) + k + 1} 15 2 0 0 {n + 1}" for k, n in enumerate(bc)]
+    with open(base + ".msh", "w") as fh:
+        fh.write("\n".join(lines + ["$EndElements"]) + "\n")
+    jm, jf = jmesh_mod.load_mesh_and_forces(base + ".msh")
+    tm, tf = tmesh_mod.load_mesh_and_forces(base + ".msh")
+    for name in ("coords", "elem_types", "elem_conn", "boundary_nodes", "tri"):
+        np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name))
+    np.testing.assert_array_equal(tm.dirichlet_mask(), jm.dirichlet_mask())
+    np.testing.assert_array_equal(tf, jf)

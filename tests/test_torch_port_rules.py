@@ -1,8 +1,8 @@
 """The port's package rules: fem_shell_tpu_torch (and chip_smoke.py)
 import nothing of JAX or of the JAX package, importing the package builds
 no kernel, and asking for CUDA where there is none raises instead of
-falling back to the CPU (the constructors, and the solver CLI's default
-device)."""
+falling back to the CPU (the constructors, stress recovery, the coupled
+structure solve, and the solver CLI's default device)."""
 import ast
 import os
 import re
@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from fem_shell_tpu_torch import Material, MeshGenParams, MultigridShellSystem, ShellSystem, generate
+from fem_shell_tpu_torch.coupling.adapter import run_structure
+from fem_shell_tpu_torch.coupling.demo import CONFIG, tower_mesh
 from fem_shell_tpu_torch.device import resolve_device
+from fem_shell_tpu_torch.ops.recovery import recover_stresses, recover_stresses_nodal
 from fem_shell_tpu_torch.large import LargeShellSystem
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -81,6 +84,14 @@ assert big.refine_history[-1] < 1e-9
 amg = AMGShellSystem(pm, Material(0.3, 1e7, 0.5), dtype=torch.float32, df=True, device="cpu")
 amg.solve_df_refined(pf)
 assert amg.refine_history[-1] < 1e-9
+from fem_shell_tpu_torch.coupling.demo import run_demo
+from fem_shell_tpu_torch.mesh import read_mesh, write_xdr
+res, _ = run_demo(max_timesteps=2, verbose=False, device="cpu")
+assert res.timesteps == 2 and res.step_iterations == [3, 3]
+write_xdr(mesh, base + ".xdr")
+assert read_mesh(base + ".xdr").n_nodes == mesh.n_nodes
+assert cli_main(["-nu", "0.3", "-e", "1e7", "-t", "0.5", "-mesh", base + ".xda", "-out", base + "_s",
+                 "--stress", "--device", "cpu"]) == 0 and os.path.exists(base + "_s.vtu")
 bad =sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "fem_shell_tpu" or m.startswith("fem_shell_tpu."))
 print("FOREIGN", bad)
@@ -92,8 +103,9 @@ def test_package_and_solve_import_no_jax():
     # a fresh interpreter (this test process has imported JAX already)
     # runs the fused solve, the f64 multigrid solve, ShellSystem, the
     # writers, the meshgen and solver CLIs, the refined solves of the class
-    # operator and of the materialized pair, a 12^2 grid assembly, and a
-    # renumbered plate's refined LargeShellSystem and AMG solves
+    # operator and of the materialized pair, a 12^2 grid assembly, a
+    # renumbered plate's refined LargeShellSystem and AMG solves, two steps
+    # of the coupled tower demo, an XDR round trip and the CLI's --stress
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -151,6 +163,12 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         LargeShellSystem(mesh, mat, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         ShellSystem(mesh, mat)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover_stresses(mesh, mat, np.zeros((mesh.n_nodes, 6)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover_stresses_nodal(mesh, mat, np.zeros((mesh.n_nodes, 6)))
+    with pytest.raises(RuntimeError, match="CUDA"):  # before any transport opens
+        run_structure(tower_mesh(), mat, CONFIG)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
