@@ -17,7 +17,13 @@ before the last line:
    max|y|: 1e-13 in f64, 1e-5 in f32 (another summation order over 36*K
    terms). Times with CUDA events: kernel, plain version, bound (the bytes
    the product must move over the card's datasheet bandwidth) and one
-   torch.sparse BSR product as a yardstick the port never calls.
+   torch.sparse BSR product as a yardstick the port never calls. Then
+   stencil_spmv_f32v (f32 values, f64 x and y; the f64 CG matvec over an
+   f32 operator, no TPU kernel's counterpart) against its plain version on
+   the same operators cast to f32 with a random f64 x, gate F32V_GATE
+   (1e-13) of max|y|; times as above, the bound 4 bytes per value and 8
+   per x and y entry, the yardstick the f64 BSR product of the cast-up
+   operator.
 2b. The class-stencil kernel against its plain version on the card, on
    class tables built by the port (64x64 quad K=9 and tri K=7, 1024x1024
    tri): the f64 operator, the f32 operator, the fused w * (b - A x) form
@@ -238,6 +244,33 @@ before the last line:
    (a 64x64 plate as .xda and as .xdr, the thesis example as .msh): every
    .vtu point and cell array equal bit for bit to the library calls.
 
+12. The differentiable solve and the f32 systems. (a) The compliance c =
+   f^T u of the tower split 16 x 16 (63,558 DOF) under a lateral load of 1
+   in x on each interface node, through ShellSystem._solve_pcg_impl(...,
+   differentiable=True) in f64 to rtol 1e-12, and its gradients in the
+   loads and the coordinates: central differences on the card at the three
+   largest entries of each (rtol 1e-5 loads, 1e-4 coordinates), two
+   forward + backward passes equal bit for bit, elem_stiffness<3>
+   launched once per forward and never in the backward, the forward and
+   adjoint CGs at their rtol; forward and backward seconds, the backward's
+   parts timed alone (adjoint CG, element vjp, nodal sum), iterations and
+   peak memory. The 16x16 Test-G quad plate's gradients on the card against
+   the port's CPU ones at 1e-10 of their max. (b) On the 64x64 Test-G quad
+   and tri plates, each f32 route twice: ShellSystem(dtype=float32).solve
+   and LargeShellSystem(dtype=float32).solve to rtol 1e-6, its solve_df to
+   1e-9, MultigridShellSystem(dtype=float32).solve to 1e-6 and solve_df to
+   1e-9: the rtol reached, two calls equal bit for bit, the centre within
+   twice the port's CPU f32 departure from the f64 centre
+   (F32_CPU_DEPARTURE), stencil_spmv<float> and stencil_spmv_f32v
+   launches as the code predicts them; seconds per solve, ms per
+   iteration, departures. The solver CLI's --f32, --f32 --precond mg and
+   --f32 --precond mg --df in subprocesses on a 64x64 plate: exit 0, the
+   rtol reached and the .vtu displacements equal to the library solve of
+   the same files. (c) run_structure(dtype=float32) on the 30-step tower
+   demo (rtol 1e-5) on the CPU and on the card: the same coupling
+   iterations, solutions within F32_TOWER_GATE (1e-3) of max|u| of the
+   CPU's, one elem_stiffness<3> launch.
+
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
@@ -415,6 +448,53 @@ ROOF_PAIR_CPU = {64: (54, -0.29977165876861), 128: (76, -0.30011196323392236)}
 # (set-up 64.7 s, solve 66.3 s, residual 8.56e-11, levels 173889 / 31718 /
 # 3671 / 484 / 73)
 JAX_AMG_416 = (48, 0.1064661181265919)
+
+# phase 12: the differentiable solve and the f32 systems
+# 12(a): the compliance c = f^T u of the tower split TOWER_SPLIT x
+# TOWER_SPLIT under a lateral load of GRAD_LOAD in x on every interface
+# node (a fixed load, simpler than a coupled step's forces), f64, to rtol
+# GRAD_RTOL; central differences at the GRAD_PROBES largest entries of each
+# gradient with steps FD_EPS (the load: c is quadratic in f, so only the
+# solves' rounding enters; the coordinates: ~0.2 % of the 6-8e-3 element
+# size) at FD_RTOL, tests/test_autodiff.py's tolerances
+GRAD_RTOL = 1e-12
+GRAD_MAXITER = 20000
+GRAD_LOAD = 1.0
+GRAD_PROBES = 3
+FD_EPS = {"forces": 1e-3, "coords": 1e-5}
+FD_RTOL = {"forces": 1e-5, "coords": 1e-4}
+GRAD_PLATE = 16  # the card's gradients against the CPU's at this Test-G quad plate
+GRAD_CPU_GATE = 1e-10  # of each gradient's max
+# 12(b): the f32 routes at Test-G size
+F32_N = 64
+F32_RTOL = 1e-6  # the f32 CGs
+F32_DF_RTOL = 1e-9  # the f64 CGs over f32 operators (solve_df)
+F32V_GATE = 1e-13  # stencil_spmv_f32v against its plain version, of max|y|
+# the port's own f32 centre departures |w32 - w64| / |w64| on the CPU at
+# F32_N^2 (the f64 centre: MultigridShellSystem.solve, rtol 1e-10), from
+#   python3 tools/torch_f32_autodiff_phase.py --device cpu --departures
+# (one f32 rounding of a uniform grid's identical rows is a coherent
+# perturbation that kappa amplifies; solve_df's f32 scaling rounds twice
+# more); the card's are gated at twice these
+F32_CPU_DEPARTURE = {
+    "ShellSystem.solve q": 1.015e-01,
+    "LargeShellSystem.solve q": 1.013e-01,
+    "LargeShellSystem.solve_df q": 1.363e-01,
+    "MultigridShellSystem.solve q": 1.001e-01,
+    "MultigridShellSystem.solve_df q": 1.014e-01,
+    "ShellSystem.solve t": 8.044e-02,
+    "LargeShellSystem.solve t": 8.068e-02,
+    "LargeShellSystem.solve_df t": 4.775e-01,
+    "MultigridShellSystem.solve t": 9.046e-02,
+    "MultigridShellSystem.solve_df t": 8.053e-02,
+}
+# 12(c): run_structure(dtype=float32) on the tower demo, its CGs to this
+# rtol (an f32 CG does not reach the f64 default 1e-10); the card's
+# solutions within F32_TOWER_GATE of max|u| of the CPU's f32 run (both f32
+# runs lie ~1.9e-3 from the f64 one, tests/test_torch_coupling.py; the
+# gate allows the two CGs' rounding, not the operator's error)
+F32_TOWER_RTOL = 1e-5
+F32_TOWER_GATE = 1e-3
 
 
 class Gates:
@@ -1225,24 +1305,25 @@ def reset_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
     from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness
     from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
-    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_f32v
     from fem_shell_tpu_torch.ops.stencil_spmv_sym import stencil_spmv_sym
 
     for counts in (stencil_spmv.launches, class_stencil.launches, elem_stiffness.launches):
         for dt in counts:
             counts[dt] = 0
-    stencil_resid_dd.launches = stencil_spmv_sym.launches = 0
+    stencil_resid_dd.launches = stencil_spmv_sym.launches = stencil_spmv_f32v.launches = 0
 
 
 def read_launches():
     from fem_shell_tpu_torch.ops.class_stencil import class_stencil
     from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness
     from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
-    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_f32v
     from fem_shell_tpu_torch.ops.stencil_spmv_sym import stencil_spmv_sym
 
     return {"spmv_f32": stencil_spmv.launches[torch.float32],
             "spmv_f64": stencil_spmv.launches[torch.float64],
+            "spmv_f32v": stencil_spmv_f32v.launches,
             "class_f32": class_stencil.launches[torch.float32],
             "class_f64": class_stencil.launches[torch.float64],
             "sym": stencil_spmv_sym.launches, "resid": stencil_resid_dd.launches,
@@ -3010,6 +3091,476 @@ def stress_cli_phase(gates, device="cuda"):
     return {"seconds": secs, "runs": rows}
 
 
+def f32v_kernel_phase(gates, shapes, reps, bandwidth, peaks, device="cuda"):
+    """stencil_spmv_f32v (f32 values, f64 x and y) against its plain version
+    on operators assembled by the port and cast to f32, with a random f64
+    x: gate F32V_GATE of max|y| (both widen the same f32 values exactly and
+    sum in f64, in another order). Times with CUDA events: kernel, plain
+    version, bound (4 bytes per value read, 8 per x and y entry, over the
+    datasheet bandwidth, or 72 f64 operations per stored block slot over
+    the f64 vector peak) and the f64 BSR product of the cast-up operator
+    (the same function) as a yardstick the port never calls."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv_f32v, stencil_spmv_plain
+
+    mat = Material(0.3, 1e7, 0.5)
+    rows = []
+    for et, n in shapes:
+        mesh, _, _ = plate(et, n)
+        sys_ = LargeShellSystem(mesh, mat, device=device, chunk=65536)
+        v = sys_.assemble().to(torch.float32)
+        offs = tuple(int(o) for o in sys_.offsets)
+        k, npad = v.shape[1], v.shape[2]
+        x = torch.from_numpy(np.random.default_rng(n + 1).normal(size=(6, npad))).to(device)
+        y = stencil_spmv_f32v(v, x, offs)
+        y_plain = stencil_spmv_plain(v, x, offs)
+        torch.cuda.synchronize()
+        scale = float(y_plain.abs().max())
+        err = float((y - y_plain).abs().max()) / scale
+        tag = f"{et}{n} K={k} Npad={npad} f32 values, f64 x"
+        gates.check(err <= F32V_GATE and y.dtype == torch.float64 and bool(torch.isfinite(y).all()),
+                    f"stencil_spmv_f32v {tag}: max|y-y_plain|/max|y| = {err:.3e} <= {F32V_GATE:.0e}")
+        r = reps[n]
+        ms = cuda_ms(lambda: stencil_spmv_f32v(v, x, offs), r)
+        plain_ms = cuda_ms(lambda: stencil_spmv_plain(v, x, offs), max(2, r // 10))
+        slots = sum(npad - abs(o) for o in offs)
+        nbytes = 4 * 36 * slots + 8 * 12 * npad
+        flops = 72 * slots
+        bound_ms = max(nbytes / bandwidth, flops / peaks[torch.float64]) * 1e3
+        bound_by = "bytes" if nbytes / bandwidth >= flops / peaks[torch.float64] else "operations"
+        library_ms = None
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                a = bsr_operator(v.to(torch.float64), offs)
+            xa = x.T.reshape(-1, 1).contiguous()
+            library_ms = cuda_ms(lambda: a @ xa, max(2, r // 2))
+            del a, xa
+        except (RuntimeError, NotImplementedError) as e:  # yardstick only
+            print(f"  library BSR product unavailable for {tag}: {type(e).__name__}: {e}")
+        rec = {"shape": f"{et}{n}", "k": k, "npad": npad, "max_abs_err": float((y - y_plain).abs().max()),
+               "rel_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "bytes": nbytes, "achieved_GBps": nbytes / ms / 1e6,
+               "share_of_bound": bound_ms / ms}
+        print(f"  f32v {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({rec['share_of_bound']:.0%} of the bound) library_ms={library_ms} rel_err={err:.2e}", flush=True)
+        rows.append(rec)
+        del v, x, y, y_plain, sys_
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 12: the differentiable solve and the f32 systems
+
+
+def grad_probe(g, free, k):
+    """The k entries of largest |g| among ``free`` ones, as index tuples."""
+    flat = torch.where(free.reshape(-1) > 0, g.reshape(-1).abs(), torch.zeros_like(g.reshape(-1)))
+    idx = torch.topk(flat, k).indices.cpu().numpy()
+    return [tuple(int(v) for v in np.unravel_index(i, tuple(g.shape))) for i in idx]
+
+
+def compliance_grads(system, coords, forces, rtol=GRAD_RTOL):
+    """(c, dc/d coords, dc/d forces, x) of the compliance c = f^T u(coords,
+    f) through _solve_pcg_impl(..., differentiable=True)."""
+    c_ = coords.detach().clone().requires_grad_(True)
+    f_ = forces.detach().clone().requires_grad_(True)
+    x, _ = system._solve_pcg_impl(c_, f_, rtol, GRAD_MAXITER, differentiable=True)
+    c = torch.sum(x * f_)
+    c.backward()
+    return float(c.detach()), c_.grad, f_.grad, x.detach()
+
+
+def grad_phase(gates, device="cuda", split=TOWER_SPLIT):
+    """12(a): load and coordinate gradients of the compliance on the tower
+    split ``split`` x ``split`` under GRAD_LOAD (a lateral load of 1 in x on
+    every interface node), ShellSystem in f64, rtol GRAD_RTOL: one
+    elem_stiffness<3> launch per forward, none in the backward; central
+    differences of the compliance at the GRAD_PROBES largest entries of
+    each gradient (FD_EPS steps, FD_RTOL); two forward + backward passes
+    equal bit for bit. Records the forward s, the backward s and its parts
+    (adjoint CG, element vjp, nodal sum, each timed again alone), the CG
+    iterations of the forward and adjoint solves, and the peak memory."""
+    from fem_shell_tpu_torch import Material, MeshGenParams, ShellSystem, generate
+    from fem_shell_tpu_torch.coupling.adapter import interface_load
+    from fem_shell_tpu_torch.ops.assemble import element_cotangents, sum_by_table
+    from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness_vjp
+    from fem_shell_tpu_torch.solver import pcg
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    mesh, _, _ = generate(MeshGenParams(TOWER[0], TOWER[1] * split, TOWER[2] * split, *TOWER[3:]))
+    iface = mesh.coupling_node_ids()
+    nu, em, t = TOWER_MATERIAL
+    system = ShellSystem(mesh, Material(nu=nu, em=em, thickness=t), device=device)
+    load = np.zeros((len(iface), 2))
+    load[:, 0] = GRAD_LOAD
+    forces = torch.as_tensor(interface_load(mesh.n_nodes, iface, load, 2, "y"), device=device)
+    tag = f"tower {split}x{split} ({mesh.n_nodes} nodes, {mesh.n_dofs} DOF)"
+    runs = []
+    for k in range(2):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        coords = system.coords.detach().clone().requires_grad_(True)
+        f = forces.clone().requires_grad_(True)
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        x, res = system._solve_pcg_impl(coords, f, GRAD_RTOL, GRAD_MAXITER, differentiable=True)
+        c = torch.sum(x * f)
+        sync()
+        fwd_s = time.perf_counter() - t0
+        fwd_launches = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        c.backward()
+        sync()
+        bwd_s = time.perf_counter() - t0
+        bwd_launches = read_launches()
+        runs.append({"forward_s": fwd_s, "backward_s": bwd_s, "residual": res.residual,
+                     "adjoint_iters": int(system.last_adjoint_cg.iters),
+                     "adjoint_residual": float(system.last_adjoint_cg.residual),
+                     "forward_launches": fwd_launches, "backward_launches": bwd_launches,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated() - base if cuda else None,
+                     "grads": (coords.grad.detach(), f.grad.detach()), "compliance": float(c.detach())})
+        if cuda:
+            gates.check(fwd_launches["elem3"] == 1 and fwd_launches["elem4"] == 0 and bwd_launches["elem3"] == 0,
+                        f"grad {tag} pass {k}: elem_stiffness<3> launched {fwd_launches['elem3']} time(s) in the "
+                        f"forward (1), {bwd_launches['elem3']} in the backward (0)")
+        gates.check(system.last_adjoint_cg.residual <= GRAD_RTOL,
+                    f"grad {tag} pass {k}: adjoint CG residual {system.last_adjoint_cg.residual:.2e} "
+                    f"({system.last_adjoint_cg.iters} iterations) <= {GRAD_RTOL:.0e}; the forward's true "
+                    f"residual {res.residual:.2e} (recorded)")
+    a, b = runs
+    same = all(torch.equal(p, q) for p, q in zip(a["grads"], b["grads"]))
+    gates.check(same, f"grad {tag}: two forward + backward passes equal bit for bit")
+    gc, gf = a["grads"]
+    # the forward CG alone, for its iteration count
+    x, fres = system._solve_pcg_impl(system.coords, forces, GRAD_RTOL, GRAD_MAXITER)
+    fwd_iters = int(fres.iters)
+    gates.check(fres.residual <= GRAD_RTOL, f"grad {tag}: forward CG {fwd_iters} iterations to residual "
+                                            f"{fres.residual:.2e} <= {GRAD_RTOL:.0e}")
+    # the backward's parts, each timed again alone on the same inputs
+    op = system.assemble()
+    prec = system._preconditioner(op, "block_jacobi")
+    gx = forces.clone()  # d c / d x with f fixed
+    sync()
+    t0 = time.perf_counter()
+    lam = pcg(op.matvec, gx, rtol=GRAD_RTOL, maxiter=GRAD_MAXITER, apply_prec=prec).x * system.free_mask
+    sync()
+    adj_s = time.perf_counter() - t0
+    xm = x * system.free_mask
+    t0 = time.perf_counter()
+    rows = []
+    for conn in (system.tri_conn, system.quad_conn):
+        if conn.shape[0]:
+            xyz = system.coords[conn].permute(1, 2, 0).contiguous()
+            g = elem_stiffness_vjp(xyz, system.dm, system.dp, system.thickness, element_cotangents(lam, xm, conn))
+            rows.append(g.permute(2, 0, 1).reshape(-1, 3))
+    rows.append(system.coords.new_zeros((1, 3)))
+    rows = torch.cat(rows)
+    sync()
+    vjp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sum_by_table(rows, system._corners)
+    sync()
+    sum_s = time.perf_counter() - t0
+    # central differences of the compliance at the largest entries
+    def comp(coords, f):
+        u, _ = system._solve_pcg_impl(coords, f, GRAD_RTOL, GRAD_MAXITER)
+        return float(torch.sum(u * f))
+
+    fd = []
+    free3 = torch.ones_like(gc)
+    for kind, g, free in (("forces", gf, system.free_mask), ("coords", gc, free3)):
+        for probe in grad_probe(g, free, GRAD_PROBES):
+            eps = FD_EPS[kind]
+            args = [system.coords, forces]
+            i = 0 if kind == "coords" else 1
+            plus, minus = args[i].clone(), args[i].clone()
+            plus[probe] += eps
+            minus[probe] -= eps
+            ap, am = list(args), list(args)
+            ap[i], am[i] = plus, minus
+            val = (comp(*ap) - comp(*am)) / (2 * eps)
+            got = float(g[probe])
+            rel = abs(got - val) / abs(val)
+            gates.check(rel <= FD_RTOL[kind], f"grad {tag}: d c / d {kind}{list(probe)} = {got:.10e}, central "
+                                              f"difference {val:.10e}: relative {rel:.2e} <= {FD_RTOL[kind]:.0e}")
+            fd.append({"kind": kind, "probe": list(probe), "grad": got, "fd": val, "rel": rel})
+    rec = {"case": tag, "dof": mesh.n_dofs, "load": f"{GRAD_LOAD} in x on each of {len(iface)} interface nodes",
+           "compliance": a["compliance"], "forward_iters": fwd_iters, "bitwise_repeat": same,
+           "adjoint_s_alone": adj_s, "vjp_s_alone": vjp_s, "nodal_sum_s_alone": sum_s, "fd": fd,
+           "runs": [{k: v for k, v in r.items() if k != "grads"} for r in runs]}
+    for k, r in enumerate(rec["runs"]):
+        print(f"  grad {tag} pass {k}: forward {r['forward_s']:.3f} s ({fwd_iters} CG iterations), backward "
+              f"{r['backward_s']:.3f} s ({r['adjoint_iters']} adjoint iterations), peak {r['peak_mem_bytes']}",
+              flush=True)
+    print(f"  grad {tag} backward parts alone: adjoint CG {adj_s:.3f} s, vjp {vjp_s:.3f} s, nodal sum "
+          f"{sum_s:.4f} s", flush=True)
+    return rec
+
+
+def grad_plate_phase(gates, device="cuda", n=GRAD_PLATE):
+    """12(a), last part: the compliance gradients of the n x n Test-G quad
+    plate on ``device`` against the port's own on the CPU, within
+    GRAD_CPU_GATE of each gradient's max."""
+    from fem_shell_tpu_torch import Material, ShellSystem
+
+    mesh, rows, fac = plate("q", n)
+    mat = Material(0.3, 1e7, 0.5)
+    out = {}
+    for dev in ("cpu", device):
+        s = ShellSystem(mesh, mat, device=dev)
+        _, gc, gf, _ = compliance_grads(s, s.coords, torch.as_tensor(rows * fac, device=dev))
+        out[dev] = (gc.cpu(), gf.cpu())
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(out[device], out["cpu"])]
+    gates.check(max(errs) <= GRAD_CPU_GATE, f"grad q{n}: {device} - CPU gradients, coords {errs[0]:.2e}, "
+                                            f"forces {errs[1]:.2e} <= {GRAD_CPU_GATE:.0e} of their max")
+    return {"n": n, "rel_err_coords": errs[0], "rel_err_forces": errs[1]}
+
+
+def f32_solves(et, n, device, reps=1):
+    """Each f32 route of 12(b) on the n x n Test-G plate: name -> (centre w
+    of each call as f64, iterations, relative residual, seconds per call,
+    launches of the last call, the last solution). The f64 reference is
+    MultigridShellSystem(mesh, mat).solve(rtol=1e-10)."""
+    from fem_shell_tpu_torch import Material, MultigridShellSystem, ShellSystem
+    from fem_shell_tpu_torch.large import LargeShellSystem
+
+    mesh, rows, fac = plate(et, n)
+    forces = rows * fac
+    mat = Material(0.3, 1e7, 0.5)
+    cuda = torch.device(device).type == "cuda"
+    c = mesh.n_nodes // 2
+    ref = float(MultigridShellSystem(mesh, mat, device=device).solve(forces, rtol=1e-10)[c, 2])
+    shell = ShellSystem(mesh, mat, dtype=torch.float32, device=device)
+    large = LargeShellSystem(mesh, mat, dtype=torch.float32, device=device)
+    mg = MultigridShellSystem(mesh, mat, dtype=torch.float32, device=device)
+
+    def cg(s):
+        return int(s.last_cg.iters), float(s.last_cg.residual)
+
+    def df(s):
+        return int(s.last_iters), float(s.last_residual)
+
+    routes = {
+        "ShellSystem.solve": (lambda: shell.solve(forces, rtol=F32_RTOL, maxiter=20000), shell, cg, F32_RTOL),
+        "LargeShellSystem.solve": (lambda: large.solve(forces, rtol=F32_RTOL, maxiter=20000), large, cg, F32_RTOL),
+        "LargeShellSystem.solve_df": (lambda: large.solve_df(forces, rtol=F32_DF_RTOL, maxiter=20000), large, df,
+                                      F32_DF_RTOL),
+        "MultigridShellSystem.solve": (lambda: mg.solve(forces, rtol=F32_RTOL), mg, cg, F32_RTOL),
+        "MultigridShellSystem.solve_df": (lambda: mg.solve_df(forces, rtol=F32_DF_RTOL), mg, df, F32_DF_RTOL),
+    }
+    out = {"ref": ref, "n_levels": mg.n_levels, "routes": {}}
+    for name, (call, s, stats, rtol) in routes.items():
+        us, secs = [], []
+        for _ in range(1 + reps):
+            reset_launches()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u = call()
+            if cuda:
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            us.append(u)
+        it, res = stats(s)
+        out["routes"][name] = {"centres": [float(u[c, 2]) for u in us], "iters": it, "residual": res,
+                               "rtol": rtol, "seconds": secs, "launches": read_launches(),
+                               "bitwise_repeat": all(torch.equal(us[0], u) for u in us[1:])}
+    return out
+
+
+def f32_departures(n=F32_N, device="cpu"):
+    """The port's f32 centre departures |w32 - w64| / |w64| of every 12(b)
+    route on ``device`` (the constants F32_CPU_DEPARTURE come from the CPU)."""
+    out = {}
+    for et in ("q", "t"):
+        run = f32_solves(et, n, device, reps=0)
+        for name, r in run["routes"].items():
+            out[f"{name} {et}"] = abs(r["centres"][0] - run["ref"]) / abs(run["ref"])
+    return out
+
+
+def f32_phase(gates, et, n=F32_N, device="cuda"):
+    """12(b): the f32 routes on the n x n Test-G plate (f32_solves), each
+    called twice: the CG reaches its rtol, two calls equal bit for bit, the
+    centre within twice the CPU's f32 departure from the f64 centre
+    (F32_CPU_DEPARTURE), the launches as the code predicts them:
+    stencil_spmv<float> once per CG iteration of LargeShellSystem.solve,
+    stencil_spmv_f32v once per iteration of each solve_df, and in the
+    multigrid routes 7 stencil_spmv<float> per non-coarsest level and
+    V-cycle application (one before the CG loop and one per iteration),
+    plus one per iteration of MultigridShellSystem.solve's f32 CG;
+    elem_stiffness once per ShellSystem solve. Records seconds per solve,
+    ms per iteration and the departures."""
+    cuda = torch.device(device).type == "cuda"
+    run = f32_solves(et, n, device)
+    ref, lv = run["ref"], run["n_levels"] - 1
+    recs = []
+    for name, r in run["routes"].items():
+        it, got = r["iters"], r["launches"]
+        dep = abs(r["centres"][0] - ref) / abs(ref)
+        cpu_dep = F32_CPU_DEPARTURE[f"{name} {et}"]
+        tag = f"f32 {et}{n} {name}"
+        gates.check(r["residual"] <= r["rtol"], f"{tag}: {it} iterations to residual {r['residual']:.2e} "
+                                                f"<= {r['rtol']:.0e}")
+        gates.check(r["bitwise_repeat"], f"{tag}: two calls equal bit for bit")
+        gates.check(dep <= 2 * cpu_dep, f"{tag}: centre {r['centres'][0]:.8f}, departure {dep:.3e} from the f64 "
+                                        f"centre <= 2 x the CPU's {cpu_dep:.3e}")
+        if "MultigridShellSystem" in name:
+            want = {"spmv_f32": 7 * lv * (it + 1) + (it if name.endswith(".solve") else 0),
+                    "spmv_f32v": it if name.endswith("solve_df") else 0}
+        elif "LargeShellSystem" in name:
+            want = {"spmv_f32": it if name.endswith(".solve") else 0, "spmv_f32v": it if name.endswith("solve_df")
+                    else 0}
+        else:
+            want = {"spmv_f32": 0, "spmv_f32v": 0, f"elem{4 if et == 'q' else 3}": 1}
+        if cuda:
+            gates.check(all(got[k] == v for k, v in want.items()),
+                        f"{tag}: launches { {k: got[k] for k in want} } == {want}")
+        secs = min(r["seconds"])
+        rec = {"case": tag, "route": name, "iters": it, "residual": r["residual"], "seconds": r["seconds"],
+               "ms_per_iteration": 1e3 * secs / max(it, 1), "centre": r["centres"][0], "departure": dep,
+               "cpu_departure": cpu_dep, "launches": got}
+        print(f"  {tag}: {it} iterations, {secs:.3f} s ({rec['ms_per_iteration']:.3f} ms per iteration), "
+              f"centre departure {dep:.3e} (CPU {cpu_dep:.3e}), launches {got}", flush=True)
+        recs.append(rec)
+    return recs
+
+
+def f32_cli_phase(gates, n=F32_N, device="cuda"):
+    """12(b), the solver CLI's --f32 routes in subprocesses on the card, on
+    an n x n Test-G quad plate written by the port's meshgen (the default
+    route, --precond mg, --precond mg --df): exit 0, the printed residual
+    at most the rtol, and the .vtu displacements equal to the library
+    solve of the same files."""
+    import os
+    import shutil
+
+    from fem_shell_tpu_torch import Material, MultigridShellSystem, ShellSystem
+    from fem_shell_tpu_torch.mesh import load_mesh_and_forces
+
+    work = OUT_DIR / "cli_f32"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    base = str(work / "plateG")
+    gen = subprocess.run([sys.executable, "-m", "fem_shell_tpu_torch.meshgen"]
+                         + f"q {n} {n} 0 0 10 10 0,0,0,0 300 2 1 z".split() + [base],
+                         cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    gates.check(gen.returncode == 0, f"cli --f32: meshgen exit {gen.returncode}")
+    mesh, forces = load_mesh_and_forces(base + ".xda")
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    shell = ShellSystem(mesh, mat, dtype=torch.float32, device=device)
+    mg = MultigridShellSystem(mesh, mat, dtype=torch.float32, device=device)
+    recs = []
+    for name, flags, rtol, lib in (
+            ("--f32", [], F32_RTOL, lambda: shell.solve(forces, rtol=F32_RTOL, maxiter=20000)),
+            ("--f32 --precond mg", ["--precond", "mg"], F32_RTOL, lambda: mg.solve(forces, rtol=F32_RTOL,
+                                                                                  maxiter=20000)),
+            ("--f32 --precond mg --df", ["--precond", "mg", "--df"], F32_DF_RTOL,
+             lambda: mg.solve_df(forces, rtol=F32_DF_RTOL, maxiter=20000))):
+        out_base = base + "_".join([""] + [f.strip("-") for f in flags])
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "fem_shell_tpu_torch.utils.cli", "-nu", "0.3", "-e", "1e7", "-t",
+                              "0.5", "-mesh", base + ".xda", "-out", out_base, "--f32", "--rtol", str(rtol),
+                              "--maxiter", "20000"] + flags + ([] if device == "cuda" else ["--device", device]),
+                             cwd=work, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        ok = res.returncode == 0 and os.path.exists(out_base + ".vtu")
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("Linear solve:")]
+        resid = float(line[0].split()[-1]) if line else float("inf")
+        gates.check(ok and resid <= rtol, f"cli {name}: exit {res.returncode}, {line}")
+        u = lib().cpu().numpy()
+        diff = float(np.abs(vtu_displacement(out_base + ".vtu") - u[:, :3]).max()) if ok else float("inf")
+        gates.check(diff <= 1e-12 * float(np.abs(u[:, :3]).max()),
+                    f"cli {name}: .vtu displacements - the library solve of the same files: max {diff:.3e}")
+        print(f"  cli {name}: rc={res.returncode} {secs:.2f} s {line}", flush=True)
+        recs.append({"route": name, "returncode": res.returncode, "seconds": secs, "line": line,
+                     "max_abs_diff": diff, "stderr": res.stderr[-2000:]})
+    return recs
+
+
+def f32_tower_phase(gates, device="cuda", steps=TOWER_STEPS):
+    """12(c): run_structure(dtype=float32) on the tower demo (in-process
+    dummy fluid), ``steps`` steps to rtol F32_TOWER_RTOL, once on the CPU
+    and once on ``device``: the same coupling iterations in every step and
+    every step's solution within F32_TOWER_GATE of max|u| of the CPU run;
+    one elem_stiffness<3> launch per run; s per run and CG iterations."""
+    import threading
+
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.coupling.adapter import run_structure
+    from fem_shell_tpu_torch.coupling.demo import CONFIG, tower_mesh
+    from fem_shell_tpu_torch.coupling.fluid_dummy import run_fluid
+    from fem_shell_tpu_torch.coupling.m2n import InProcessTransport
+
+    nu, em, t = TOWER_MATERIAL
+    runs = {}
+    for dev in ("cpu", device):
+        ts, tf = InProcessTransport.pair()
+        fluid = threading.Thread(target=run_fluid, args=(CONFIG,), kwargs={"transport": tf, "max_timesteps": steps},
+                                 daemon=True)
+        reset_launches()
+        fluid.start()
+        t0 = time.perf_counter()
+        res = run_structure(tower_mesh(), Material(nu=nu, em=em, thickness=t), CONFIG, dt=0.01, dead_axis="y",
+                            transport=ts, rtol=F32_TOWER_RTOL, max_timesteps=steps, dtype=torch.float32, device=dev)
+        wall = time.perf_counter() - t0
+        fluid.join(timeout=PEER_TIMEOUT_S)
+        gates.check(not fluid.is_alive() and res.timesteps == steps,
+                    f"f32 tower on {dev}: {res.timesteps} of {steps} steps, the fluid finished")
+        runs[dev] = (res, coupled_stats(res, wall), read_launches())
+    (cpu, cpu_rec, _), (card, card_rec, launches) = runs["cpu"], runs[device]
+    scale = float(np.abs(cpu.solutions).max())
+    same = card.solutions.shape == cpu.solutions.shape
+    diff = float(np.abs(card.solutions - cpu.solutions).max()) if same else float("inf")
+    gates.check(card.step_iterations == cpu.step_iterations,
+                f"f32 tower: coupling iterations per step on {device} == the CPU's ({sum(cpu.step_iterations)})")
+    gates.check(diff <= F32_TOWER_GATE * scale and card.solutions.dtype == np.float64,
+                f"f32 tower: {device} - CPU solutions max {diff:.3e} <= {F32_TOWER_GATE:.0e} * {scale:.4e} (f64 "
+                f"on the host)")
+    if torch.device(device).type == "cuda":
+        gates.check(launches["elem3"] == 1, f"f32 tower: elem_stiffness<3> launched {launches['elem3']} time(s) (1)")
+    for dev, (_, rec, _) in runs.items():
+        print(f"  f32 tower {dev}: {rec['wall_s']:.3f} s, {rec['coupling_iterations']} coupling iterations, "
+              f"{rec['cg_iterations_per_solve']:.1f} CG iterations per solve at {rec['ms_per_cg_iteration']:.4f} ms",
+              flush=True)
+    return {"cpu": cpu_rec, "card": card_rec, "launches": launches, "max_abs_diff_cpu": diff, "scale": scale}
+
+
+def phase12(gates, device="cuda", split=TOWER_SPLIT, n=F32_N):
+    """Phase 12 in order, with each part's seconds."""
+    out, laps, t0 = {}, {}, time.perf_counter()
+
+    def lap(key):
+        nonlocal t0
+        laps[key] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    out["grad"] = grad_phase(gates, device=device, split=split)
+    out["grad_plate"] = grad_plate_phase(gates, device=device)
+    lap("a")
+    out["f32"] = [rec for et in ("q", "t") for rec in f32_phase(gates, et, n, device=device)]
+    out["f32_cli"] = f32_cli_phase(gates, n, device=device)
+    lap("b")
+    out["f32_tower"] = f32_tower_phase(gates, device=device)
+    lap("c")
+    out["phase12_s"] = laps
+    print(f"  phase12_s={sum(laps.values()):.1f} {laps}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
@@ -3053,6 +3604,9 @@ def main() -> int:
     print("phase 2: kernels against their plain versions", flush=True)
     shapes = [("q", 64), ("t", 64), ("t", 1024)]
     kern = kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
+
+    print("phase 2 (mixed): stencil_spmv_f32v against its plain version", flush=True)
+    f32v = f32v_kernel_phase(gates, shapes, {64: 200, 1024: 20}, bandwidth, peaks)
 
     print("phase 2b: class-stencil kernel against its plain version", flush=True)
     class_ptxas = ptxas_by_kernel(built["class_stencil"]["log"])
@@ -3146,6 +3700,13 @@ def main() -> int:
     coupled_elem3 = (sum(r["launches"]["elem3"] for r in tower["runs"] + tower_scale["runs"])
                      + tower_scale["direct_launches"]["elem3"])
 
+    print("phase 12: the differentiable solve (gradients on the tower split "
+          f"{TOWER_SPLIT}x{TOWER_SPLIT}) and the f32 systems ({F32_N}^2 Test-G, the --f32 CLI routes, the f32 "
+          "coupled tower)", flush=True)
+    p12 = phase12(gates)
+    p12_launches = ([r["forward_launches"] for r in p12["grad"]["runs"]] + [r["launches"] for r in p12["f32"]]
+                    + [p12["f32_tower"]["launches"]])
+
     entries = []
     for dtype, meta in KERNELS.items():
         mine = [r for r in kern if r["dtype"] == str(dtype)[6:]]
@@ -3185,12 +3746,26 @@ def main() -> int:
     for entry in entries[:2]:  # the scale, pair, f64 multigrid and roof paths' levels run stencil_spmv
         key = "spmv_f32" if "float" in entry["name"] else "spmv_f64"
         entry["launches"] += sum(r["launches"][key] for r in class_runs + pair_runs + mg_runs)
+        entry["launches"] += sum(r[key] for r in p12_launches)  # the f32 systems of phase 12
         entry["launches"] += sum(r["launches_total"][key] for r in roof_runs)
         entry["launches"] += sum(r["launches"][key] for r in large_routes)  # LargeShellSystem's stencil mode
         if key == "spmv_f64":  # and every f64 V-cycle level, held against the plain version in phases 8-9
             checks = [l for r in mg_runs + [roof] for l in r["plain_checks"]["levels"]]
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [l["max_abs_err"] for l in checks])
             entry["max_rel_err"] = max([entry["max_rel_err"]] + [l["rel_err"] for l in checks])
+    at = f32v[-1]
+    entries.append({
+        "name": "stencil_spmv_f32v", "route": "cuda", "source": SOURCE, "replaces": "fem_shell_tpu/ops/df.py:212",
+        "note": "no TPU kernel: the port's instance of stencil_spmv for the f64 CG over an f32 operator, the "
+                "counterpart of the XLA df_stencil_matvec_f32v",
+        "launches": sum(r["spmv_f32v"] for r in p12_launches),
+        "max_abs_err": max(r["max_abs_err"] for r in f32v), "max_rel_err": max(r["rel_err"] for r in f32v),
+        "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"], "at": f"{at['shape']} K={at['k']} Npad={at['npad']}",
+        "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")}
+                     for r in f32v],
+    })
+    gates.check(entries[-1]["launches"] > 0, "stencil_spmv_f32v launched on the main path")
     for form, meta in PAIR_KERNELS.items():
         mine = [r for r in pkern if r["form"] == form]
         at = [r for r in mine if r["shape"] == "t1024"][0]
@@ -3220,7 +3795,7 @@ def main() -> int:
                          + sum(r["launches_total"][key] for r in roof_runs)
                          + gather["launches"][key] + amg64["ctor_launches"][key]
                          + amg32["ctor_launches"][key] + sum(r["launches"][key] for r in large_routes)
-                         + (coupled_elem3 if m == 3 else 0)),
+                         + (coupled_elem3 if m == 3 else 0) + sum(r[key] for r in p12_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in mine + cases),
             "max_rel_err": max(r["rel_err"] for r in mine + cases),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -3243,7 +3818,8 @@ def main() -> int:
          "roof_cycles": cycles, "galerkin_fused": fused_gal, "roof_pairs": roof_pairs,
          "unstructured": unstructured, "unstructured_cli": ucli,
          "coupled": {"phase11_s": phase11_s, "tower_demo": tower, "coupled_cli": coupled_cli,
-                     "tower_scale": tower_scale, "recovery": recovery, "stress_cli": stress_cli}},
+                     "tower_scale": tower_scale, "recovery": recovery, "stress_cli": stress_cli},
+         "f32v_kernel": f32v, "phase12": p12},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

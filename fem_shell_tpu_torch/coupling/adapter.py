@@ -93,15 +93,12 @@ def run_structure(
 
     ``on_timestep(t, sols)`` is invoked after each converged timestep with the
     full [N,6] solution (the per-timestep output hook,
-    fem-shell_precice.cpp:377-408). ``device`` defaults to CUDA; pass
-    ``"cpu"`` to solve on the host.
+    fem-shell_precice.cpp:377-408). ``dtype`` is the ``ShellSystem``'s
+    (float64 or float32); the solution comes to the host as f64 either way.
+    ``device`` defaults to CUDA; pass ``"cpu"`` to solve on the host.
     """
     from fem_shell_tpu_torch.system import ShellSystem
 
-    if dtype != torch.float64:
-        raise NotImplementedError(
-            f"run_structure(dtype={dtype}): the f32 ShellSystem is not ported yet "
-            "(ROADMAP.md Queue 1 item 11)")
     if devices > 1:
         raise NotImplementedError(
             f"run_structure(devices={devices}): the device-parallel structure participant is not "
@@ -164,7 +161,7 @@ def run_structure(
         forces = interface_load(n, iface_nodes, iface_forces, dims, dead_axis)
         with perf.scope("solve"):
             u, n_it, _res = repeat_solve(forces)
-            sols = u.cpu().numpy()
+            sols = u.cpu().numpy().astype(np.float64)
         iters.append(int(n_it))
         solved_with = iface_forces
 

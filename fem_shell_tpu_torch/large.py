@@ -29,12 +29,29 @@ mode, with its f64 assembly and its own solves. Port of
   carries a df pair, so the loop is not held at the residual of x rounded
   to f64 (~1e-7 of ||b|| on the 1M-DOF plate).
 
-Not ported (ROADMAP.md, Queue 1 item 6): ``dtype=torch.float32`` and
-``exact_geom=True`` (the exact-geometry f32 assembly and its df solve)
-raise NotImplementedError; the strip-df pipeline (``assemble_soa_df``,
-``build_strip_plan``, ``free_strip_cache``) has no counterpart, since
-native f64 needs no strips (``assemble_df(method="strip")`` is
-``assemble()``).
+``dtype=torch.float32``: the operator is assembled in f64 as above and
+cast to f32 once (one rounding per entry; the JAX package assembles in
+f32 on re-centred two-float32 coordinates, ``exact_geom``). ``exact_geom``
+is accepted and defaults on for f32, as in the JAX package, but changes
+nothing: the port's coordinates are f64, so there is nothing to
+re-centre. The ``dtype`` default stays f64 (the JAX package's is f32),
+because an f32 operator is ~kappa eps32 off (4 % at 64^2; ROADMAP.md
+"Differences").
+
+- f32 ``solve``: f32 PCG, the matvec ``stencil_spmv`` in f32 (stencil
+  mode: the JAX package's Pallas path) or ``soa_matvec`` in f32 (gather
+  mode); block-Jacobi applies f32 inverses of the self blocks, as the JAX
+  package does.
+- f32 ``solve_df`` (stencil mode only, as in the JAX package): the f32
+  values scaled in f32 by s = rsqrt(diag), then the f64 CG whose matvec
+  reads them through ``ops/stencil_spmv.stencil_spmv_f32v`` (f32 values,
+  f64 vectors), the counterpart of the JAX package's
+  ``df_stencil_matvec_f32v``.
+- ``solve_df_refined`` needs the f64 operator and raises on f32.
+
+The strip-df pipeline (``assemble_soa_df``, ``build_strip_plan``,
+``free_strip_cache``) has no counterpart, since native f64 needs no
+strips (``assemble_df(method="strip")`` is the f64 assembly).
 """
 from __future__ import annotations
 
@@ -61,16 +78,13 @@ from fem_shell_tpu_torch.ops.soa import (
     soa_self_blocks,
 )
 from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
-from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_f32v
 from fem_shell_tpu_torch.solver import pcg, refine
 
 # from this many elements a structured grid is assembled by the grid
 # pipeline (assemble_df "auto"), and a multigrid hierarchy over such a
 # fine mesh assembles every level that way (mg.py)
 GRID_MIN_ELEMENTS = 65536
-
-_UNPORTED = "not ported yet (ROADMAP.md Queue 1 item 6)"
-
 
 class LargeShellSystem:
     def __init__(
@@ -86,15 +100,17 @@ class LargeShellSystem:
         device=None,
     ):
         """``k_max`` pads the neighbour slots (and forces gather mode when the
-        mesh has more distinct offsets). ``dirichlet_mask`` overrides the
-        mesh's own BC mask (multigrid coarse levels pass subsampled fine
-        masks). ``reorder="rcm"`` renumbers the nodes first. ``device``
-        defaults to CUDA; pass ``"cpu"`` to run on the host."""
-        if dtype != torch.float64:
-            raise NotImplementedError(f"LargeShellSystem(dtype={dtype}): the f32 exact-geometry "
-                                      f"assembly and its df solve are {_UNPORTED}")
-        if exact_geom:
-            raise NotImplementedError(f"exact_geom=True (the f32 exact-geometry assembly) is {_UNPORTED}")
+        mesh has more distinct offsets). ``dtype`` is the operator's and
+        ``solve``'s (float64 or float32; the assembly is f64 either way).
+        ``exact_geom`` (default: on for f32) is kept for the JAX signature
+        and changes nothing (module docstring). ``dirichlet_mask``
+        overrides the mesh's own BC mask (multigrid coarse levels pass
+        subsampled fine masks). ``reorder="rcm"`` renumbers the nodes
+        first. ``device`` defaults to CUDA; pass ``"cpu"`` to run on the
+        host."""
+        if dtype not in (torch.float64, torch.float32):
+            raise ValueError(f"LargeShellSystem(dtype={dtype}): torch.float64 or torch.float32")
+        self.exact_geom = (dtype == torch.float32) if exact_geom is None else bool(exact_geom)
         self.device = resolve_device(device)
         self._order = None
         if reorder == "rcm":
@@ -111,8 +127,8 @@ class LargeShellSystem:
         self.dtype = dtype
         self.chunk = int(chunk)
         dm, dp = material.matrices()
-        self.dm = torch.as_tensor(dm, dtype=dtype, device=self.device)
-        self.dp = torch.as_tensor(dp, dtype=dtype, device=self.device)
+        self.dm = torch.as_tensor(dm, dtype=torch.float64, device=self.device)
+        self.dp = torch.as_tensor(dp, dtype=torch.float64, device=self.device)
         self.thickness = material.thickness
 
         self.pattern = build_soa_pattern(mesh, k_max=k_max)
@@ -125,7 +141,8 @@ class LargeShellSystem:
         mask = mesh.dirichlet_mask() if dirichlet_mask is None else np.asarray(dirichlet_mask, bool)
         free[: p.n_nodes] = ~mask
         free[p.n_nodes :] = 0.0
-        self.free_t = torch.as_tensor(free.T.copy(), dtype=dtype, device=self.device)  # [6, Npad]
+        self._free64 = torch.as_tensor(free.T.copy(), dtype=torch.float64, device=self.device)  # [6, Npad]
+        self.free_t = self._free64.to(dtype)
         self._tables_cache = None
         self._coords_cache = None
         self._passes_cache = None
@@ -133,7 +150,7 @@ class LargeShellSystem:
     @property
     def coords(self):
         if self._coords_cache is None:
-            self._coords_cache = torch.as_tensor(self.mesh.coords, dtype=self.dtype, device=self.device)
+            self._coords_cache = torch.as_tensor(self.mesh.coords, dtype=torch.float64, device=self.device)
         return self._coords_cache
 
     @property
@@ -145,7 +162,7 @@ class LargeShellSystem:
             self._tables_cache = {
                 "tri_conn": idx(self.mesh.tri),
                 "quad_conn": idx(self.mesh.quad),
-                "free_t": self.free_t,
+                "free_t": self._free64,
                 "adj_t": self.adj_t,
             }
         return self._tables_cache
@@ -171,8 +188,9 @@ class LargeShellSystem:
         return apply_bc_soa(values, tables["free_t"], offsets=self.offsets, adj_t=tables["adj_t"])
 
     def assemble(self):
-        """BC-eliminated operator values [36, K, Npad] in f64."""
-        return self._assemble_impl(self.coords, self._tables)
+        """BC-eliminated operator values [36, K, Npad] in ``dtype``: the f64
+        assembly, cast once on an f32 system."""
+        return self._assemble_impl(self.coords, self._tables).to(self.dtype)
 
     @functools.cached_property
     def grid(self):
@@ -189,8 +207,9 @@ class LargeShellSystem:
         - ``grid``: the scatter-free structured-grid pipeline
           (``ops/assemble_grid.py``), ``max(1, strip_nodes // nxp)`` element
           rows per strip; ValueError off a structured grid.
-        - ``strip``: ``assemble()`` (the JAX package's strip-df pipeline is
-          not ported; native f64 needs no strips).
+        - ``strip``: ``assemble()``, before its cast on an f32 system (the
+          JAX package's strip-df pipeline is not ported; native f64 needs no
+          strips).
         - ``auto``: ``grid`` on a structured grid of at least
           ``GRID_MIN_ELEMENTS`` elements, else ``strip``. The JAX package
           also keeps the CPU on ``strip``, because its CPU compiler
@@ -205,12 +224,13 @@ class LargeShellSystem:
             if grid is None:
                 raise ValueError("method='grid' requires a detected structured grid "
                                  "(detect_structured_grid returned None for this mesh)")
-            return assemble_grid(grid, self.coords, self.free_t, self.offsets,
+            return assemble_grid(grid, self.coords, self._free64, self.offsets,
                                  self.pattern.n_pad, self.dm, self.dp, self.thickness,
                                  strip_rows=max(1, strip_nodes // grid.nxp), with_diag=with_diag)
         if method != "strip":
             raise ValueError(f"unknown method {method!r}: 'auto', 'grid' or 'strip'")
-        values = self.assemble()
+        values = (self.assemble() if self.dtype == torch.float64
+                  else self._assemble_impl(self.coords, self._tables))  # f64 on an f32 system too
         if with_diag:
             return values, soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
         return values
@@ -225,14 +245,15 @@ class LargeShellSystem:
         adj_t = self.adj_t
         return lambda x: soa_matvec(values, x, adj_t)
 
-    def _forces_in(self, forces) -> torch.Tensor:
-        """[6, Npad] f64 device forces in the system's numbering, zero on
-        the padding."""
-        f = torch.as_tensor(forces, dtype=self.dtype).to(self.device)
+    def _forces_in(self, forces, dtype=None) -> torch.Tensor:
+        """[6, Npad] device forces in ``dtype`` (default the system's) in
+        the system's numbering, zero on the padding."""
+        dtype = dtype or self.dtype
+        f = torch.as_tensor(forces, dtype=dtype).to(self.device)
         if self._order is not None:
             f = f[torch.as_tensor(self._order, device=self.device)]
         p = self.pattern
-        out = torch.zeros((6, p.n_pad), dtype=self.dtype, device=self.device)
+        out = torch.zeros((6, p.n_pad), dtype=dtype, device=self.device)
         out[:, : p.n_nodes] = f.T
         return out
 
@@ -250,16 +271,26 @@ class LargeShellSystem:
         return out
 
     def solve(self, forces, rtol: float = 1e-10, maxiter: int = 20000, precond: str = "jacobi"):
-        """Assemble, then PCG to ``rtol`` with ``precond`` "jacobi" or
-        "block_jacobi" (the 6x6 self blocks, Cholesky-factored once).
-        Returns the f64 displacements [n_nodes, 6] on the device in the
-        original numbering; sets ``last_cg``."""
+        """Assemble, then PCG in ``dtype`` to ``rtol`` with ``precond``
+        "jacobi" or "block_jacobi" (the 6x6 self blocks: Cholesky-factored
+        once in f64, inverted once in f32, as the JAX package's f32 solve
+        inverts them). Returns the displacements [n_nodes, 6] in ``dtype``
+        on the device in the original numbering; sets ``last_cg``."""
         values = self.assemble()
         b = self._forces_in(forces) * self.free_t
         if precond == "block_jacobi":
-            l_blocks = cholesky6(soa_self_blocks(values, offsets=self.offsets, adj_t=self.adj_t))
-            res = pcg(self._matvec(values), b, rtol=rtol, maxiter=maxiter,
-                      apply_prec=lambda r: cholesky6_solve(l_blocks, r.T).T.contiguous())
+            blocks = soa_self_blocks(values, offsets=self.offsets, adj_t=self.adj_t)
+            if self.dtype == torch.float32:
+                inv = torch.linalg.inv(blocks)
+
+                def apply_prec(r):
+                    return torch.einsum("nab,bn->an", inv, r).contiguous()
+            else:
+                l_blocks = cholesky6(blocks)
+
+                def apply_prec(r):
+                    return cholesky6_solve(l_blocks, r.T).T.contiguous()
+            res = pcg(self._matvec(values), b, rtol=rtol, maxiter=maxiter, apply_prec=apply_prec)
         elif precond == "jacobi":
             diag = soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
             res = pcg(self._matvec(values), b, diag=diag, rtol=rtol, maxiter=maxiter)
@@ -271,7 +302,8 @@ class LargeShellSystem:
     def _scaled(self):
         """(S A S, s): the assembled operator symmetrically scaled by s =
         diag(A)^-1/2 (1 where the diagonal is not positive), rows first,
-        as the JAX package scales it."""
+        as the JAX package scales it, in ``dtype`` (on f32, in f32 as the
+        JAX package's ``_solve_df_impl_f32`` scales)."""
         values = self.assemble()
         diag = soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
         s = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))  # [6, Npad]
@@ -281,16 +313,30 @@ class LargeShellSystem:
         return v4.reshape(36, k, npad), s
 
     def _cg_identity(self, values, b, rtol, maxiter):
-        """CG on the scaled operator with the identity preconditioner (the
-        JAX package's pcg_df with unit diagonal, in native f64)."""
-        return pcg(self._matvec(values), b, diag=torch.ones_like(b), rtol=rtol, maxiter=maxiter)
+        """f64 CG on the scaled operator with the identity preconditioner
+        (the JAX package's pcg_df with unit diagonal, in native f64); f32
+        values go through ``stencil_spmv_f32v``."""
+        if values.dtype == torch.float32:
+            offsets = self.offsets
+
+            def mv(x):
+                return stencil_spmv_f32v(values, x, offsets)
+        else:
+            mv = self._matvec(values)
+        return pcg(mv, b, diag=torch.ones_like(b), rtol=rtol, maxiter=maxiter)
 
     def solve_df(self, forces, rtol: float = 1e-10, maxiter: int = 20000):
         """f64 CG on D^-1/2 A D^-1/2 (D^1/2 u) = D^-1/2 f, the identity as
-        preconditioner: Jacobi-PCG in exact arithmetic. Sets
-        ``last_iters`` and ``last_residual``; returns as ``solve``."""
+        preconditioner: Jacobi-PCG in exact arithmetic. On an f32 system
+        (stencil mode only, as in the JAX package) the scaled operator is
+        f32 and the CG f64. Sets ``last_iters`` and ``last_residual``;
+        returns the f64 displacements as ``solve`` returns its."""
+        if self.dtype == torch.float32 and self.offsets is None:
+            raise NotImplementedError("f32 df solves require stencil mode (the JAX package's "
+                                      "_solve_df_impl_f32 is stencil-only)")
         values, s = self._scaled()
-        b = self._forces_in(forces) * (self.free_t != 0) * s
+        s = s.to(torch.float64)
+        b = self._forces_in(forces, torch.float64) * (self.free_t != 0) * s
         res = self._cg_identity(values, b, rtol, maxiter)
         self.last_iters = int(res.iters)
         self.last_residual = float(res.residual)
@@ -312,7 +358,11 @@ class LargeShellSystem:
         the true residual (module docstring; ``solver.refine``), on any
         mesh. Sets ``last_iters`` (all inner iterations), ``last_residual``,
         ``refine_history`` (true residual per pass) and
-        ``refine_inner_iters``; returns as ``solve``."""
+        ``refine_inner_iters``; returns as ``solve``. Needs the f64
+        operator: an f32 system raises, as the JAX package's does."""
+        if self.dtype != torch.float64:
+            raise ValueError("solve_df_refined needs the f64 operator: construct "
+                             "LargeShellSystem(..., dtype=torch.float64)")
         values, s = self._scaled()
         b = self._forces_in(forces) * (self.free_t != 0) * s
         out = refine(lambda rhs, tol, it: self._cg_identity(values, rhs, tol, it), self._true_residual(values, b),

@@ -67,11 +67,21 @@ These configurations are ported:
   truncated flexible-CG steps (``k_depth`` bounds the K levels; the outer
   CG then runs flexible).
 
+- ``MultigridShellSystem(mesh, material, dtype=torch.float32)`` (f32
+  levels without ``df_operator``): every level is assembled (or RAP'd) in
+  f64 and kept as its f32 cast, the coarsest with the f32 Cholesky factor
+  of its scaled dense operator; the JAX package assembles them in f32 on
+  re-centred coordinates (ROADMAP.md "Differences"). ``solve`` is f32 PCG
+  with the f32 V-cycle, every matvec ``stencil_spmv`` in f32; ``solve_df``
+  is f64 PCG over the same f32 fine values through
+  ``ops/stencil_spmv.stencil_spmv_f32v``, preconditioned by that f32
+  cycle (the JAX package's ``_solve_df_impl_f32``). ``solve_fused``
+  assembles in f64 and refuses f32 systems, as the JAX package does.
+
 On the TPU the JAX package runs the outer CG in two-float32 ("df")
 arithmetic because its f64 is emulated; on a GPU f64 is native, so the
-port's CG is f64 wherever the JAX package's is df. f32 levels without
-``df_operator`` (the f32 exact-geometry assembly) and the level-0 class
-operator on the coarsest level are not ported yet (ROADMAP.md).
+port's CG is f64 wherever the JAX package's is df. The level-0 class
+operator on the coarsest level is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -105,16 +115,13 @@ from fem_shell_tpu_torch.ops.exact_stencil import (
 )
 from fem_shell_tpu_torch.ops.soa import _offsets_of, soa_diagonal
 from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
-from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv, stencil_spmv_f32v
 from fem_shell_tpu_torch.ops.stencil_spmv_sym import (
     is_symmetric,
     prepare_sym_values,
     stencil_spmv_sym,
 )
 from fem_shell_tpu_torch.solver import pcg
-
-_ROADMAP = "not ported yet (ROADMAP.md, Queue 1)"
-
 
 # ----------------------------------------------------------------------
 # structured-grid detection
@@ -401,8 +408,9 @@ class MultigridShellSystem:
         device=None,
     ):
         """With ``assemble`` (the default) every level is built here: in f64
-        without ``df_operator`` (dtype float64; ``solve``, ``solve_df``),
-        or with ``df_operator=True`` (dtype float32) as f32 V-cycle levels
+        without ``df_operator`` (dtype float64; ``solve``, ``solve_df``), as
+        f32 casts of f64 levels without ``df_operator`` (dtype float32; the
+        f32 ``solve`` and ``solve_df``), or with ``df_operator=True`` (dtype float32) as f32 V-cycle levels
         beside the f64 CG (``solve_df``, ``solve_df_refined``), or with
         ``df_operator=True, df_cycle=True`` as f64 levels under an f64
         V-cycle (the JAX package's two-float32 cycle, in native f64).
@@ -441,11 +449,8 @@ class MultigridShellSystem:
                 )
             if not assemble:
                 raise ValueError("df_operator=True builds its levels in the constructor")
-        elif dtype != torch.float64:
-            raise NotImplementedError(
-                "f32 levels without df_operator (the f32 exact-geometry assembly): "
-                f"{_ROADMAP}; construct MultigridShellSystem(..., dtype=torch.float64)"
-            )
+        elif dtype not in (torch.float64, torch.float32):
+            raise ValueError(f"MultigridShellSystem(dtype={dtype}): torch.float64 or torch.float32")
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         if cycle not in (None, "V", "W", "K"):
@@ -456,7 +461,7 @@ class MultigridShellSystem:
         self.df_operator = bool(df_operator)
         self.df_cycle = bool(df_cycle)
         # every level's values in f64: the f64 hierarchy, or the df cycle
-        self._f64_levels = not self.df_operator or self.df_cycle
+        self._f64_levels = dtype == torch.float64 or self.df_cycle
         self.nu_smooth = nu_smooth
         self.omega = omega
         self.smoother = smoother
@@ -940,7 +945,7 @@ class MultigridShellSystem:
                 "arith='df' (two-float32 CG) exists because TPU f64 is emulated; "
                 "on this device native f64 replaces it: use arith='f64'"
             )
-        if self.df_operator:
+        if self.dtype != torch.float64:
             raise ValueError("solve_fused assembles levels in f64: construct "
                              "MultigridShellSystem(..., dtype=torch.float64, assemble=False)")
         lvl = self._fine
@@ -955,25 +960,27 @@ class MultigridShellSystem:
         self.last_residual = float(res)
         return x64[:, :n].T.contiguous()
 
-    def _require_f64_levels(self, what: str):
+    def _require_levels(self, what: str):
         if self.df_operator:
-            raise ValueError(f"{what} on f64 levels: df_operator=True systems solve with "
+            raise ValueError(f"{what} on f64 or f32 levels: df_operator=True systems solve with "
                              "solve_df / solve_df_refined")
         if self.levels[0].values is None:
             raise ValueError(f"{what} needs assembled levels: construct with assemble=True "
                              "(the default) or call reassemble()")
 
     def solve(self, forces, rtol: float = 1e-10, maxiter: int = 2000):
-        """f64 PCG to ``rtol`` over the f64 fine operator, preconditioned by
-        the f64 V-cycle (the JAX package's ``solve`` on f64 levels): every
-        level's matvec is ``stencil_spmv`` in f64, the coarsest level's
-        solve the uploaded host inverse. ``forces`` is host [n, 6] or a
-        staged [6, npad] tensor. Returns the f64 displacements [n_nodes, 6]
-        on the device; sets ``last_cg`` (``CGResult``, x in the [6, npad]
-        layout). Nothing syncs the device but the CG's norm reads."""
-        self._require_f64_levels("solve")
+        """PCG in the levels' dtype to ``rtol`` over the fine operator,
+        preconditioned by the V-cycle on the same levels (the JAX package's
+        ``solve``): on f64 levels every matvec is ``stencil_spmv`` in f64
+        and the coarsest solve the uploaded host inverse; on f32 levels all
+        of it is f32, the coarsest solve the f32 Cholesky factor.
+        ``forces`` is host [n, 6] or a staged [6, npad] tensor. Returns the
+        displacements [n_nodes, 6] in the levels' dtype on the device; sets
+        ``last_cg`` (``CGResult``, x in the [6, npad] layout). Nothing syncs
+        the device but the CG's norm reads."""
+        self._require_levels("solve")
         fine = self.levels[0]
-        b = self._staged_forces(forces) * fine.free_t
+        b = self._staged_forces(forces).to(self.dtype) * fine.free_t
 
         def mv(x):
             return stencil_spmv(fine.values, x, fine.offsets)
@@ -1115,8 +1122,10 @@ class MultigridShellSystem:
     def solve_df(self, forces, rtol: float = 1e-9, maxiter: int = 2000,
                  return_device: bool = False):
         """f64 PCG to ``rtol`` over the fine operator, preconditioned by the
-        f32 V-cycle: the df_operator levels, or f32 copies of the f64
-        levels (the JAX package's df CG over f64 levels, in native f64);
+        f32 V-cycle: the df_operator levels, f32 copies of the f64 levels
+        (the JAX package's df CG over f64 levels, in native f64), or the
+        f32 levels themselves, whose f32 fine values the CG reads through
+        ``stencil_spmv_f32v`` (the JAX package's ``_solve_df_impl_f32``);
         with ``df_cycle`` by the f64 cycle on the f64 levels (the CG
         matvec from the fine operator's upper half where ``sym_spmv``).
         ``forces`` is host [n, 6] or a staged [6, npad] tensor. Returns the
@@ -1124,19 +1133,29 @@ class MultigridShellSystem:
         ``return_device`` the [6, npad] solution vector; ``last_iters`` and
         ``last_residual`` hold the CG count and relative residual."""
         if not self.df_operator:
-            # f64 levels: the CG over the f64 fine operator, the V-cycle on
-            # their f32 copies (the JAX package's _solve_df_impl, whose df
-            # CG native f64 replaces)
-            self._require_f64_levels("solve_df")
-            self._ensure_f32_levels()
-            fine, levels32 = self.levels[0], self._levels32
-            b = self._staged_forces(forces) * fine.free_t
+            # the f64 CG over the fine operator, the V-cycle on f32 levels:
+            # f64 levels and their f32 copies (the JAX package's
+            # _solve_df_impl, whose df CG native f64 replaces), or the f32
+            # levels and their own fine values (_solve_df_impl_f32)
+            self._require_levels("solve_df")
+            fine = self.levels[0]
+            if self.dtype == torch.float32:
+                levels32 = self.levels
+
+                def mv(x):
+                    return stencil_spmv_f32v(fine.values, x, fine.offsets)
+            else:
+                self._ensure_f32_levels()
+                levels32 = self._levels32
+
+                def mv(x):
+                    return stencil_spmv(fine.values, x, fine.offsets)
+            b = self._staged_forces(forces) * fine.free_t.to(torch.float64)
 
             def prec32(r):
                 return self._vcycle(levels32, 0, r.to(torch.float32)).to(torch.float64)
 
-            res = pcg(lambda x: stencil_spmv(fine.values, x, fine.offsets), b, rtol=rtol,
-                      maxiter=maxiter, apply_prec=prec32, flexible=self.cycle == "K")
+            res = pcg(mv, b, rtol=rtol, maxiter=maxiter, apply_prec=prec32, flexible=self.cycle == "K")
             x, it, res = res.x, res.iters, res.residual
         else:
             b = self._staged_forces(forces) * self._systems[0].free_t

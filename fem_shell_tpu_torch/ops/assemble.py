@@ -17,6 +17,13 @@ Per node, a padded list of neighbour nodes and one 6x6 block each:
 3. symmetric zero-Dirichlet elimination with a unit diagonal on the first
    self slot.
 
+``coords_gradient`` is the reverse of steps 1-3 for the differentiable
+solve: the gradient of -<lam, A(coords) x> in the node coordinates,
+through ``ops/elem_stiffness.elem_stiffness_vjp`` per element and a
+nodal sum in a fixed order (``corner_table``). The autograd backward of
+``coords[conn]`` would be a scatter-add, whose order on CUDA is not
+fixed.
+
 DOF numbering: ``dof = 6*node + var`` (node-major).
 """
 from __future__ import annotations
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 from fem_shell_tpu_torch.mesh import ShellMesh
-from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness
+from fem_shell_tpu_torch.ops.elem_stiffness import elem_stiffness, elem_stiffness_vjp
 
 
 @dataclasses.dataclass
@@ -107,6 +114,33 @@ def contributor_table(pattern: EllPattern) -> np.ndarray:
     return table
 
 
+def corner_table(flat_nodes: np.ndarray, n_nodes: int) -> np.ndarray:
+    """[C_max, N] int64: entry (c, n) is the c-th position p with
+    ``flat_nodes[p] == n``, in increasing p, padded with
+    ``len(flat_nodes)`` (the index of an appended zero row). Summing the
+    gathered rows pass by pass adds each node's values in the order
+    ``np.add.at`` adds them."""
+    flat_nodes = np.asarray(flat_nodes, np.int64)
+    order = np.argsort(flat_nodes, kind="stable")
+    nodes = flat_nodes[order]
+    counts = np.bincount(nodes, minlength=n_nodes)
+    start = np.cumsum(counts) - counts
+    rank = np.arange(len(nodes)) - start[nodes]
+    table = np.full((max(1, int(counts.max(initial=0))), n_nodes), len(flat_nodes), np.int64)
+    table[rank, nodes] = order
+    return table
+
+
+def sum_by_table(rows, table) -> torch.Tensor:
+    """[N, ...] node sums of ``rows`` (whose last row is zero) through a
+    ``corner_table`` on the rows' device: one gather and one add per pass,
+    in ``np.add.at``'s order on any device."""
+    acc = rows.new_zeros((table.shape[1],) + tuple(rows.shape[1:]))
+    for c in range(table.shape[0]):
+        acc = acc + rows[table[c]]
+    return acc
+
+
 def _first_self(adj):
     """[N, K] bool: each node's first self slot (padding repeats the self
     id after it)."""
@@ -168,6 +202,40 @@ def element_stiffnesses(coords, tri_conn, quad_conn, dm, dp, thickness):
         return elem_stiffness(xyz, dm, dp, thickness)
 
     return family(tri_conn, 3), family(quad_conn, 4)
+
+
+def element_cotangents(lam, x, conn) -> torch.Tensor:
+    """-lam_e x_e^T [6m, 6m, E], batch-last, for the elements ``conn [E, m]``
+    and node fields lam, x [N, 6] (element dofs node-major, as in ke): the
+    cotangent of ke_e in -<lam, A x>."""
+    e, m = conn.shape
+    le = lam[conn].reshape(e, 6 * m)
+    xe = x[conn].reshape(e, 6 * m)
+    return (-(le[:, :, None] * xe[:, None, :])).permute(1, 2, 0).contiguous()
+
+
+def coords_gradient(coords, tri_conn, quad_conn, dm, dp, thickness, lam, x, table,
+                    chunk: int = 65536) -> torch.Tensor:
+    """d(-<lam, A(coords) x>)/d coords [N, 3] f64 for the assembled and
+    Dirichlet-eliminated operator A, with lam and x [N, 6] already masked
+    by the free dofs (the elimination zeroes constrained rows and columns,
+    and its unit diagonal does not depend on coords). Per element family
+    and chunk of ``chunk`` elements: ``element_cotangents``, then
+    ``elem_stiffness_vjp``; then the nodal sum of the corner rows (Tri-3
+    elements, then Quad-4, each element's corners in order) through
+    ``table = corner_table(concat(tri.ravel(), quad.ravel()), N)``, on the
+    device."""
+    lam = lam.to(torch.float64)
+    x = x.to(torch.float64)
+    rows = []
+    for conn in (tri_conn, quad_conn):
+        for lo in range(0, conn.shape[0], chunk):
+            c = conn[lo:lo + chunk]
+            xyz = coords[c].permute(1, 2, 0).contiguous()  # [m, 3, E]
+            g = elem_stiffness_vjp(xyz, dm, dp, thickness, element_cotangents(lam, x, c))
+            rows.append(g.permute(2, 0, 1).reshape(-1, 3))
+    rows.append(coords.new_zeros((1, 3)))
+    return sum_by_table(torch.cat(rows), table)
 
 
 def scatter_to_ell(ke_tri, ke_quad, n_nodes: int, k: int, table) -> torch.Tensor:

@@ -13,6 +13,15 @@ The plain version is ``ops/elements.py`` (``tri_shell_stiffness`` /
 ``quad_shell_stiffness``) with the batch axis moved. ``elem_stiffness``
 takes it for CPU tensors and launches the kernel for CUDA tensors; it
 never falls back from one to the other.
+
+``elem_stiffness_vjp`` is the vector-Jacobian product d<g, ke>/d xyz of
+the differentiable solve's coordinate gradient. The TPU kernel has no
+backward (``pallas_elem.py`` defines none), and the JAX ``ShellSystem``
+takes its ke from the XLA element math, which ``jax.grad``
+differentiates. Its counterpart here is autograd through that same plain
+math, on xyz's own device: the counterpart of an XLA computation, not a
+fallback of the kernel. The forward ke on the card still comes from
+``csrc/elem_stiffness.cu`` alone, and a failed launch still raises.
 """
 from __future__ import annotations
 
@@ -72,6 +81,26 @@ def elem_stiffness(xyz, dm, dp, thickness: float):
         raise RuntimeError(f"elem_stiffness launch failed with CUDA error {rc}")
     elem_stiffness.launches[m] += 1
     return ke
+
+
+def elem_stiffness_vjp(xyz, dm, dp, thickness: float, g):
+    """d<g, ke>/d xyz [m, 3, E] f64 of ke = elem_stiffness(xyz, ...) for
+    cotangents g [6m, 6m, E] f64: autograd of ``elem_stiffness_plain`` on
+    xyz's device (the module docstring says why no kernel computes it).
+    ``torch.maximum`` in the drilling term splits a tie evenly between its
+    arguments, as ``jnp.maximum`` does."""
+    _check(xyz, dm, dp)
+    m = xyz.shape[0]
+    if tuple(g.shape) != (6 * m, 6 * m, xyz.shape[2]) or g.dtype != torch.float64:
+        raise ValueError(f"g must be float64 [{6 * m}, {6 * m}, {xyz.shape[2]}], "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    if g.device != xyz.device:
+        raise ValueError(f"xyz on {xyz.device}, g on {g.device}")
+    with torch.enable_grad():
+        x = xyz.detach().requires_grad_(True)
+        ke = elem_stiffness_plain(x, dm.detach(), dp.detach(), thickness)
+        (grad,) = torch.autograd.grad(ke, x, g)
+    return grad
 
 
 # kernel launches since the last reset, by element family m (plain CPU

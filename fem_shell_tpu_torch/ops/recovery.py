@@ -41,6 +41,7 @@ import torch
 from fem_shell_tpu_torch.device import resolve_device
 from fem_shell_tpu_torch.materials import Material
 from fem_shell_tpu_torch.mesh import XDA_TRI3
+from fem_shell_tpu_torch.ops.assemble import corner_table, sum_by_table
 from fem_shell_tpu_torch.ops.elements import (
     _GAUSS_ROOT,
     _QUAD_QPS,
@@ -228,23 +229,6 @@ class NodalStressField:
         return np.maximum(self.vm_top, self.vm_bot)
 
 
-def corner_table(flat_nodes: np.ndarray, n_nodes: int) -> np.ndarray:
-    """[C_max, N] int64: entry (c, n) is the c-th position p with
-    ``flat_nodes[p] == n``, in increasing p, padded with
-    ``len(flat_nodes)`` (the index of an appended zero row). Summing the
-    gathered rows pass by pass adds each node's values in the order
-    ``np.add.at`` adds them."""
-    flat_nodes = np.asarray(flat_nodes, np.int64)
-    order = np.argsort(flat_nodes, kind="stable")
-    nodes = flat_nodes[order]
-    counts = np.bincount(nodes, minlength=n_nodes)
-    start = np.cumsum(counts) - counts
-    rank = np.arange(len(nodes)) - start[nodes]
-    table = np.full((max(1, int(counts.max(initial=0))), n_nodes), len(flat_nodes), np.int64)
-    table[rank, nodes] = order
-    return table
-
-
 def recover_stresses_nodal(mesh, material: Material, u, dtype=torch.float64,
                            device=None) -> NodalStressField:
     """Gauss-point stress recovery extrapolated to nodes.
@@ -265,9 +249,7 @@ def recover_stresses_nodal(mesh, material: Material, u, dtype=torch.float64,
         idx.append(np.asarray(conn).ravel())
     rows = torch.cat(vals + [vals[0].new_zeros((1, 6))])
     table = torch.as_tensor(corner_table(np.concatenate(idx), mesh.n_nodes), device=rows.device)
-    acc = torch.zeros((mesh.n_nodes, 6), dtype=dtype, device=rows.device)
-    for c in range(table.shape[0]):
-        acc = acc + rows[table[c]]
+    acc = sum_by_table(rows, table)
     cnt = (table < rows.shape[0] - 1).sum(dim=0).to(dtype)
     acc = acc / torch.clamp(cnt, min=1.0)[:, None]
     sigma_m, moments = acc[:, :3], acc[:, 3:]

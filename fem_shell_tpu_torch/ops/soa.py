@@ -24,8 +24,12 @@ used: on CUDA it sums colliding slots in no fixed order.
 
 The gather-mode matvec (``soa_matvec``) is PyTorch, a gather and a
 batched 6x6 product, as the JAX package computes it in XLA outside any
-Pallas kernel. The strip-df assembly (``assemble_soa_df``,
-``build_strip_plan``) is not ported (ROADMAP.md, Queue 1 item 6).
+Pallas kernel. Assembly is f64; ``apply_bc_soa``, ``soa_self_blocks``,
+``soa_diagonal`` and ``soa_matvec`` work in the dtype of the values they
+are given, so an f32 system (``large.LargeShellSystem(dtype=float32)``)
+runs them on the f32 cast of the f64 operator. The strip-df assembly
+(``assemble_soa_df``, ``build_strip_plan``) has no counterpart: native
+f64 needs no strips.
 """
 from __future__ import annotations
 

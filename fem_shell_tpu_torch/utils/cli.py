@@ -20,28 +20,31 @@ exit codes and output files:
   --method    pcg | dense (ShellSystem)
   --precond   block_jacobi | jacobi (ShellSystem) | mg (geometric
               multigrid, structured grids: MultigridShellSystem.solve,
-              f64 levels) | amg (smoothed-aggregation AMG, arbitrary
+              f64 levels, f32 with --f32) | amg (smoothed-aggregation AMG, arbitrary
               meshes: AMGShellSystem, RCM-reordered unless --reorder says
               otherwise; f32 cycle with --f32, --df or --refined)
   --reorder   rcm: reverse Cuthill-McKee renumbering (LargeShellSystem,
               or AMG's reorder)
   --df        with --precond mg: solve_df on the f64 levels (f64 CG, f32
-              V-cycle); with amg: solve_df (f64 CG, the cycle in f32);
+              V-cycle), with --f32 on the f32 levels; with amg: solve_df (f64 CG, the cycle in f32);
               else LargeShellSystem.solve_df (f64 CG on the scaled
               operator). Native f64 takes the place of the JAX package's
               two-float32 arithmetic
   --refined   with --precond mg: the df_operator system's
               solve_df_refined (refinement against the class tables); with
               amg or without mg: solve_df_refined on the true residual
-  --f32       with --precond amg: the f32 cycle and CG (AMGShellSystem
-              dtype=float32)
+  --f32       ShellSystem in f32 (block_jacobi, jacobi, dense); with
+              --precond mg the f32 levels (solve, or solve_df with --df);
+              with amg the f32 cycle and CG (AMGShellSystem dtype=float32);
+              ignored by --refined and by the LargeShellSystem routes, as
+              in the JAX CLI
   --stress    with -out: recover element-center and nodal stresses
               (ops/recovery.py, on --device) into the .vtu cell and point
               data and the .vtk point data
   --device    cuda (default) | cpu
 
-Flags whose path is not ported yet print an ERROR naming ROADMAP.md and
-exit 2: --devices > 1, and --f32 outside --precond amg.
+The one flag whose path is not ported yet, --devices > 1, prints an ERROR
+naming ROADMAP.md and exits 2.
 """
 from __future__ import annotations
 
@@ -77,7 +80,8 @@ def _parse(argv: List[str]):
                     help="bandwidth-reduce the node numbering (reverse Cuthill-McKee) before solving")
     ap.add_argument("--stress", action="store_true",
                     help="with -out: write von Mises, moments and membrane stresses (cell + point data)")
-    ap.add_argument("--f32", action="store_true", help="with --precond amg: f32 cycle and CG")
+    ap.add_argument("--f32", action="store_true",
+                    help="f32 operator and solve (ShellSystem, --precond mg or amg)")
     ap.add_argument(
         "--df",
         action="store_true",
@@ -98,13 +102,10 @@ def _parse(argv: List[str]):
 
 
 def _unported(args) -> Optional[str]:
-    """The first requested path that is not ported yet, as '<what> ... item
-    N', or None."""
+    """The requested path that is not ported yet, as '<what> ... item N', or
+    None."""
     if args.devices > 1:
         return "--devices > 1 (sharded solves) is not ported yet (ROADMAP.md Queue 1 item 9)"
-    if args.f32 and args.precond != "amg":
-        item = 6 if args.precond == "mg" else 11
-        return f"--f32 (f32 assembly) is not ported yet (ROADMAP.md Queue 1 item {item})"
     return None
 
 
@@ -143,6 +144,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     material = Material(nu=args.nu, em=args.e, thickness=args.t)
     device = args.device
+    dtype = torch.float32 if args.f32 else torch.float64
 
     if args.precond == "mg":
         from fem_shell_tpu_torch.mg import MultigridShellSystem, detect_structured_grid
@@ -156,11 +158,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             u = system.solve_df_refined(forces, rtol=args.rtol, maxiter=args.maxiter)
             iters, res = system.last_iters, system.last_residual
         elif args.df:
-            system = MultigridShellSystem(mesh, material, device=device)
+            system = MultigridShellSystem(mesh, material, dtype=dtype, device=device)
             u = system.solve_df(forces, rtol=args.rtol, maxiter=args.maxiter)
             iters, res = system.last_iters, system.last_residual
         else:
-            system = MultigridShellSystem(mesh, material, device=device)
+            system = MultigridShellSystem(mesh, material, dtype=dtype, device=device)
             u = system.solve(forces, rtol=args.rtol, maxiter=args.maxiter)
             iters, res = int(system.last_cg.iters), float(system.last_cg.residual)
     elif args.precond == "amg":
@@ -191,7 +193,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             u = system.solve(forces, rtol=args.rtol, maxiter=args.maxiter, precond=args.precond)
             iters, res = int(system.last_cg.iters), float(system.last_cg.residual)
     else:
-        system = ShellSystem(mesh, material, device=device)
+        system = ShellSystem(mesh, material, dtype=dtype, device=device)
         u = system.solve(forces, method=args.method, rtol=args.rtol, maxiter=args.maxiter,
                          precond=args.precond)
         if args.method == "pcg":

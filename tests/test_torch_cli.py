@@ -18,8 +18,11 @@ utils/cli.py) against the JAX package's, on the CPU.
   print the JAX CLI's lines and write its .vtu arrays (tolerances at
   ``UNSTRUCTURED``);
 - ``--stress`` writes the JAX CLI's recovered point and cell data;
-- every flag whose path is not ported exits 2 with an ERROR naming
-  ROADMAP.md.
+- the ``--f32`` routes (ShellSystem with block-Jacobi, ``--precond mg`` and ``--precond mg --df`` on the f32 levels) print the
+  JAX CLI's lines and write its .vtu arrays at f32 tolerances
+  (``test_f32_routes_match_jax``);
+- ``--devices > 1``, the one flag whose path is not ported, exits 2 with
+  an ERROR naming ROADMAP.md.
 """
 import filecmp
 import re
@@ -186,7 +189,40 @@ def test_solver_cli_unstructured_routes_match_jax(tmp_path, capsys, route):
         assert np.abs(vt["displacement"].reshape(-1, 3) - u[:, :3]).max() <= 1e-10 * np.abs(u[:, :3]).max()
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--f32"]], ids=["devices", "f32"])
+# the --f32 routes on the 8x8 plate (the multigrid ones one level, as the
+# f64 mg route above): the same lines as the JAX CLI, the iteration count
+# within 2 (two f32 operators: the port's is the cast of the f64 one), the
+# .vtu arrays within 1e-3 of the largest of each kind (both f32 solves lie
+# ~1e-4 from the f64 one at this size) and of the f64 solve's
+F32_ROUTES = {"default": ["--f32", "--rtol", "1e-6"],
+              "mg": ["--f32", "--rtol", "1e-6", "--precond", "mg"],
+              "mg_df": ["--f32", "--rtol", "1e-9", "--precond", "mg", "--df"]}
+
+
+@pytest.mark.parametrize("route", list(F32_ROUTES), ids=list(F32_ROUTES))
+def test_f32_routes_match_jax(tmp_path, capsys, route):
+    base = str(tmp_path / "plate")
+    meshgen(PLATE.split() + [base])
+    flags = F32_ROUTES[route]
+    rc_j, jout = _run(jcli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_j"] + flags, capsys)
+    rc_t, tout = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_t", "--device", "cpu"] + flags,
+                      capsys)
+    assert rc_j == rc_t == 0 and len(jout) == len(tout) and tout[-1] == "All done :)"
+    rtol = float(flags[2])
+    for lj, lt in zip(jout, tout):
+        assert _NUM.sub("#", lj) == _NUM.sub("#", lt.replace(base + "_t", base + "_j"))
+        if lt.startswith("Linear solve:"):
+            (ij, rj), (it, rt) = (_NUM.findall(line) for line in (lj, lt))
+            assert abs(int(ij) - int(it)) <= 2 and float(rj) <= rtol and float(rt) <= rtol, (lj, lt)
+    _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_64", "--device", "cpu"], capsys)
+    vj, vt, v64 = (_vtu_arrays(base + tag + ".vtu") for tag in ("_j", "_t", "_64"))
+    for name in ("displacement", "rotation"):
+        scale = np.abs(v64[name]).max()
+        assert np.abs(vt[name] - vj[name]).max() <= 1e-3 * scale, name
+        assert np.abs(vt[name] - v64[name]).max() <= 1e-3 * scale, name
+
+
+@pytest.mark.parametrize("flag", [["--devices", "2"]], ids=["devices"])
 def test_unported_flag_exits_2(tmp_path, capsys, flag):
     base = str(tmp_path / "plate")
     meshgen(PLATE.split() + [base])

@@ -14,7 +14,9 @@ the JAX package's fem_shell_tpu/coupling, on the CPU.
   iterations within 2, the tip following 1 + sin(t / 25.01);
 - the two coupled CLIs over TCP for 3 steps against the in-process run
   (1e-12), writing the Exodus series;
-- devices > 1 and a non-f64 dtype raising with their ROADMAP items;
+- run_structure(dtype=float32) for two steps against the JAX adapter's
+  f32 run (5e-3 of max|u|, the same coupling iterations);
+- devices > 1 raising with its ROADMAP item;
 - make_timestep_writer's Exodus series and VTU files against the JAX
   writer's bytes.
 
@@ -28,6 +30,7 @@ import queue
 import socket
 import threading
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -200,7 +203,7 @@ def test_tower_interface_matches_jax():
     assert d2.min(axis=1).max() < 1e-12
 
 
-def _tower_run(pkg, steps, **kw):
+def _tower_run(pkg, steps, rtol=1e-10, **kw):
     """run_demo's coupled run with the structure's transport recording the
     converged flag of every coupling iteration: (result, coupling
     iterations per step)."""
@@ -221,7 +224,7 @@ def _tower_run(pkg, steps, **kw):
                           daemon=True)
     th.start()
     res = adapt.run_structure(dem.tower_mesh(), mat(nu=0.3, em=1e6, thickness=0.1), dem.CONFIG, dt=0.01,
-                              dead_axis="y", transport=ts, rtol=1e-10, max_timesteps=steps, **kw)
+                              dead_axis="y", transport=ts, rtol=rtol, max_timesteps=steps, **kw)
     _join(th)
     per_step, n = [], 0
     for f in flags:
@@ -281,8 +284,25 @@ def test_clis_over_sockets_match_inprocess(tmp_path, capsys):
         assert np.abs(summ["nodal_vars"][name] - want).max() <= 1e-12 * np.abs(ref.solutions).max()
 
 
-@pytest.mark.parametrize("kw,item", [({"devices": 2}, "item 9"), ({"dtype": torch.float32}, "item 11")],
-                         ids=["devices", "f32"])
+def test_f32_structure_matches_jax():
+    """run_structure(dtype=float32), two tower steps to rtol 1e-5, against
+    the JAX adapter's f32 run: the same coupling iterations per step and
+    every solution within 5e-3 of max|u| of the JAX one and of the port's
+    f64 run, returned to the host in f64. The tower's f32 operators (the
+    port's the cast of the f64 one) put the solutions 1.9e-3 (port) and
+    1.2e-3 (JAX) of max|u| from the f64 run, 8.2e-4 from each other, at
+    rtol 1e-5 as at 1e-7: kappa eps32, not the CG's stop."""
+    want, want_steps = _tower_run("jax", 2, rtol=1e-5, dtype=jnp.float32)
+    got, got_steps = _tower_run("port", 2, rtol=1e-5, dtype=torch.float32, device="cpu")
+    ref, _ = _tower_run("port", 2, device="cpu")
+    assert got.timesteps == want.timesteps == 2 and got_steps == want_steps == got.step_iterations
+    assert got.solutions.dtype == np.float64
+    scale = np.abs(ref.solutions).max()
+    assert np.abs(got.solutions - want.solutions).max() <= 5e-3 * scale
+    assert np.abs(got.solutions - ref.solutions).max() <= 5e-3 * scale
+
+
+@pytest.mark.parametrize("kw,item", [({"devices": 2}, "item 9")], ids=["devices"])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         adapter.run_structure(demo.tower_mesh(), Material(0.3, 1e6, 0.1), demo.CONFIG, device="cpu", **kw)

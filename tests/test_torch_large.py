@@ -14,8 +14,9 @@ quad plate) and gather mode (the same plate renumbered at random).
 - ``solve_df_refined`` within 1e-8 of the JAX ``ShellSystem`` f64 solve
   (tests/test_refined_ecorr.py), its true residual below its rtol 1e-11:
   the double-double iterate reaches below an f64 x's own floor;
-- the f32 paths (``dtype=torch.float32``, ``exact_geom=True``) raise
-  NotImplementedError naming ROADMAP.md.
+- the f32 system (tests/test_torch_f32.py holds its solves) keeps
+  ``exact_geom``, and ``solve_df_refined`` on it raises; an unknown
+  ``reorder`` or ``dtype`` raises.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -103,9 +104,11 @@ def test_solve_df_refined_matches_jax_system(mode):
 def test_f32_and_strip_routes_raise():
     c = _case("stencil")
     mesh, mat = mesh_from_jax(c["jmesh"]), material_from_jax(JMAT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LargeShellSystem(mesh, mat, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LargeShellSystem(mesh, mat, exact_geom=True, device="cpu")
+    f32 = LargeShellSystem(mesh, mat, dtype=torch.float32, device="cpu")
+    assert f32.exact_geom and not LargeShellSystem(mesh, mat, device="cpu").exact_geom
+    with pytest.raises(ValueError, match="f64 operator"):
+        f32.solve_df_refined(c["forces"])
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        LargeShellSystem(mesh, mat, dtype=torch.float16, device="cpu")
     with pytest.raises(ValueError, match="reorder"):
         LargeShellSystem(mesh, mat, reorder="metis", device="cpu")

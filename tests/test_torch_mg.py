@@ -174,8 +174,8 @@ def test_solve_fused_never_scatters(monkeypatch, et):
 def test_unported_paths_raise():
     jmesh, rows, fac = _mesh("q", 8)
     mesh, mat = mesh_from_jax(jmesh), material_from_jax(JMAT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmg.MultigridShellSystem(mesh, mat, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        tmg.MultigridShellSystem(mesh, mat, dtype=torch.float16, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tmg.MultigridShellSystem(mesh, mat, df_operator=True, device="cpu")
     tsys = tmg.MultigridShellSystem(mesh, mat, assemble=False, device="cpu")

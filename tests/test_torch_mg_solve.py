@@ -172,5 +172,6 @@ def test_f64_paths_refuse_the_wrong_system():
     scale = tmg.MultigridShellSystem(mesh, TMAT, dtype=torch.float32, df_operator=True, device="cpu")
     with pytest.raises(ValueError, match="solve_df"):
         scale.solve(forces)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmg.MultigridShellSystem(mesh, TMAT, dtype=torch.float32, device="cpu")
+    f32 = tmg.MultigridShellSystem(mesh, TMAT, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="solve_fused assembles levels in f64"):
+        f32.solve_fused(forces)

@@ -313,10 +313,10 @@ def test_empty_family_gives_empty_batch():
 def test_unported_paths_raise():
     tsys, forces = _port("q8")
     mesh, mat = tsys.mesh, tsys.material
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShellSystem(mesh, mat, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.solve(forces, differentiable=True)
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        ShellSystem(mesh, mat, dtype=torch.float16, device="cpu")
+    with pytest.raises(ValueError, match="method='pcg'"):
+        tsys.solve(forces, method="dense", differentiable=True)
     with pytest.raises(ValueError, match="precond"):
         tsys.solve(forces, precond="mg")
     bad = torch.eye(6, dtype=torch.float64).repeat(3, 1, 1)
