@@ -259,11 +259,15 @@ before the last line:
    and tri plates, each f32 route twice: ShellSystem(dtype=float32).solve
    and LargeShellSystem(dtype=float32).solve to rtol 1e-6, its solve_df to
    1e-9, MultigridShellSystem(dtype=float32).solve to 1e-6 and solve_df to
-   1e-9: the rtol reached, two calls equal bit for bit, the centre within
-   twice the port's CPU f32 departure from the f64 centre
-   (F32_CPU_DEPARTURE), stencil_spmv<float> and stencil_spmv_f32v
-   launches as the code predicts them; seconds per solve, ms per
-   iteration, departures. The solver CLI's --f32, --f32 --precond mg and
+   1e-9: the rtol reached, two calls equal bit for bit, the centre and
+   the iteration count against the same route's f32 solve on the CPU
+   (F32_CPU: the centres within F32_CENTRE_SPREAD of the CPU's departure
+   from the f64 centre, the counts within F32_ITER_SPREAD),
+   stencil_spmv<float> and stencil_spmv_f32v launches as the code
+   predicts them; seconds per solve, ms per iteration, departures. The
+   scaling s of the f32 solve_df on the card equal bit for bit to s taken
+   on the CPU from the same diagonal, and the card's f32 operator against
+   the CPU's cast, entries that differ counted. The solver CLI's --f32, --f32 --precond mg and
    --f32 --precond mg --df in subprocesses on a 64x64 plate: exit 0, the
    rtol reached and the .vtu displacements equal to the library solve of
    the same files. (c) run_structure(dtype=float32) on the 30-step tower
@@ -470,24 +474,33 @@ F32_N = 64
 F32_RTOL = 1e-6  # the f32 CGs
 F32_DF_RTOL = 1e-9  # the f64 CGs over f32 operators (solve_df)
 F32V_GATE = 1e-13  # stencil_spmv_f32v against its plain version, of max|y|
-# the port's own f32 centre departures |w32 - w64| / |w64| on the CPU at
-# F32_N^2 (the f64 centre: MultigridShellSystem.solve, rtol 1e-10), from
-#   python3 tools/torch_f32_autodiff_phase.py --device cpu --departures
+# each 12(b) route's f32 solve on the CPU at F32_N^2: (centre w, CG
+# iterations), from
+#   python3 tools/torch_f32_autodiff_phase.py --device cpu --cpu-reference
+# (the f64 centre, MultigridShellSystem.solve to rtol 1e-10: 0.1064653819783077
+# quad, 0.10641333662908302 tri). Every f32 route departs 0.08-0.48 from it
 # (one f32 rounding of a uniform grid's identical rows is a coherent
 # perturbation that kappa amplifies; solve_df's f32 scaling rounds twice
-# more); the card's are gated at twice these
-F32_CPU_DEPARTURE = {
-    "ShellSystem.solve q": 1.015e-01,
-    "LargeShellSystem.solve q": 1.013e-01,
-    "LargeShellSystem.solve_df q": 1.363e-01,
-    "MultigridShellSystem.solve q": 1.001e-01,
-    "MultigridShellSystem.solve_df q": 1.014e-01,
-    "ShellSystem.solve t": 8.044e-02,
-    "LargeShellSystem.solve t": 8.068e-02,
-    "LargeShellSystem.solve_df t": 4.775e-01,
-    "MultigridShellSystem.solve t": 9.046e-02,
-    "MultigridShellSystem.solve_df t": 8.053e-02,
+# more), so the card is held to the CPU's f32 solve, not to the f64 one:
+# |w_card - w_cpu| at most F32_CENTRE_SPREAD times |w_cpu - w64|, the count
+# within F32_ITER_SPREAD of the CPU's plus 2. Spread
+# measured before the scaling fix (NVIDIA H100 80GB HBM3, 700 W): centres
+# within 1 % of the departure, counts within 2.4 %, but solve_df, whose
+# f32 rsqrt differed between card and CPU (1,417 iterations against 774)
+F32_CPU = {
+    "ShellSystem.solve q": (0.09565519541501999, 2981),
+    "LargeShellSystem.solve q": (0.09568542242050171, 2977),
+    "LargeShellSystem.solve_df q": (0.08989975954306786, 1417),
+    "MultigridShellSystem.solve q": (0.09538683295249939, 13),
+    "MultigridShellSystem.solve_df q": (0.09567210507972058, 19),
+    "ShellSystem.solve t": (0.11497317999601364, 5569),
+    "LargeShellSystem.solve t": (0.11499874293804169, 5864),
+    "LargeShellSystem.solve_df t": (0.15722793935666823, 4249),
+    "MultigridShellSystem.solve t": (0.11535587906837463, 30),
+    "MultigridShellSystem.solve_df t": (0.11498291014909291, 41),
 }
+F32_CENTRE_SPREAD = 0.05  # |w_card - w_cpu| / |w_cpu - w64|
+F32_ITER_SPREAD = 0.05  # |it_card - it_cpu| / it_cpu, plus 2
 # 12(c): run_structure(dtype=float32) on the tower demo, its CGs to this
 # rtol (an f32 CG does not reach the f64 default 1e-10); the card's
 # solutions within F32_TOWER_GATE of max|u| of the CPU's f32 run (both f32
@@ -3380,28 +3393,79 @@ def f32_solves(et, n, device, reps=1):
     return out
 
 
-def f32_departures(n=F32_N, device="cpu"):
-    """The port's f32 centre departures |w32 - w64| / |w64| of every 12(b)
-    route on ``device`` (the constants F32_CPU_DEPARTURE come from the CPU)."""
+def f32_cpu_reference(n=F32_N, device="cpu"):
+    """Each 12(b) route's (centre, iterations) on ``device`` (the constants
+    F32_CPU come from the CPU)."""
     out = {}
     for et in ("q", "t"):
         run = f32_solves(et, n, device, reps=0)
         for name, r in run["routes"].items():
-            out[f"{name} {et}"] = abs(r["centres"][0] - run["ref"]) / abs(run["ref"])
+            out[f"{name} {et}"] = (r["centres"][0], r["iters"])
     return out
+
+
+def f32_scaling_check(gates, et, n=F32_N, device="cuda", cg=False):
+    """12(b), the scaling of the f32 solve_df: the card's f32 operator (the
+    cast of its f64 assembly) against the CPU's, entries that differ
+    counted; s = rsqrt(diag) of LargeShellSystem._scaled on the card equal
+    bit for bit to s taken on the CPU from the card's diagonal (f64 rsqrt
+    rounded once); the share of entries where each device's f32
+    torch.rsqrt misses that s. With ``cg``, the f64 CG over the operator
+    scaled by each device's f32 rsqrt, on the card and on the CPU:
+    iterations and centre of each (the question whether the f32 rsqrt alone
+    moved the card's iteration count)."""
+    from fem_shell_tpu_torch import Material
+    from fem_shell_tpu_torch.large import LargeShellSystem
+    from fem_shell_tpu_torch.ops.soa import soa_diagonal
+
+    mesh, rows, fac = plate(et, n)
+    forces = rows * fac
+    mat = Material(0.3, 1e7, 0.5)
+    systems = {"card": LargeShellSystem(mesh, mat, dtype=torch.float32, device=device),
+               "cpu": LargeShellSystem(mesh, mat, dtype=torch.float32, device="cpu")}
+    values = {k: sys_.assemble() for k, sys_ in systems.items()}
+    card = systems["card"]
+    diag = soa_diagonal(values["card"], offsets=card.offsets)
+    _, s_card = card._scaled()
+    d = diag.cpu()
+    s_ref = torch.where(d > 0, torch.rsqrt(d.double()).float(), torch.ones_like(d))
+    rsqrt32 = {"card": torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag)).cpu(),
+               "cpu": torch.where(d > 0, torch.rsqrt(d), torch.ones_like(d))}
+    tag = f"f32 {et}{n} solve_df scaling"
+    same = torch.equal(s_card.cpu(), s_ref)
+    gates.check(same, f"{tag}: s on {device} equal bit for bit to s from the same diagonal on the CPU")
+    rec = {"case": tag, "entries": int(d.numel()), "s_equal": same,
+           "operator_entries_differing": int((values["card"].cpu() != values["cpu"]).sum()),
+           "diag_entries_differing": int((d != soa_diagonal(values["cpu"], offsets=card.offsets)).sum()),
+           "f32_rsqrt_missing_s": {k: int((v != s_ref).sum()) for k, v in rsqrt32.items()},
+           "f32_rsqrt_card_vs_cpu": int((rsqrt32["card"] != rsqrt32["cpu"]).sum())}
+    if cg:
+        c = mesh.n_nodes // 2
+        rec["cg"] = {}
+        for dev_name, sys_ in systems.items():
+            for s_name, s32 in list(rsqrt32.items()) + [("rounded_once", s_ref)]:
+                s32 = s32.to(sys_.device)
+                b = sys_._forces_in(forces) * s32.double()
+                res = sys_._cg_identity(sys_._scale(values[dev_name], s32), b, F32_DF_RTOL, 20000)
+                u = sys_._solution_out(res.x * s32.double())
+                rec["cg"][f"{dev_name} CG, {s_name} s"] = {"iters": int(res.iters), "centre": float(u[c, 2])}
+    print(f"  {tag}: {rec}", flush=True)
+    return rec
 
 
 def f32_phase(gates, et, n=F32_N, device="cuda"):
     """12(b): the f32 routes on the n x n Test-G plate (f32_solves), each
     called twice: the CG reaches its rtol, two calls equal bit for bit, the
-    centre within twice the CPU's f32 departure from the f64 centre
-    (F32_CPU_DEPARTURE), the launches as the code predicts them:
-    stencil_spmv<float> once per CG iteration of LargeShellSystem.solve,
-    stencil_spmv_f32v once per iteration of each solve_df, and in the
-    multigrid routes 7 stencil_spmv<float> per non-coarsest level and
-    V-cycle application (one before the CG loop and one per iteration),
-    plus one per iteration of MultigridShellSystem.solve's f32 CG;
-    elem_stiffness once per ShellSystem solve. Records seconds per solve,
+    centre and the iteration count against the same route on the CPU
+    (F32_CPU: the centre within F32_CENTRE_SPREAD of the CPU's departure
+    from the f64 centre, the count within F32_ITER_SPREAD plus 2), the
+    launches as the code predicts them: stencil_spmv<float> once per CG
+    iteration of LargeShellSystem.solve, stencil_spmv_f32v once per
+    iteration of each solve_df, and in the multigrid routes 7
+    stencil_spmv<float> per non-coarsest level and V-cycle application
+    (one before the CG loop and one per iteration), plus one per iteration
+    of MultigridShellSystem.solve's f32 CG; elem_stiffness once per
+    ShellSystem solve. Records seconds per solve,
     ms per iteration and the departures."""
     cuda = torch.device(device).type == "cuda"
     run = f32_solves(et, n, device)
@@ -3409,14 +3473,20 @@ def f32_phase(gates, et, n=F32_N, device="cuda"):
     recs = []
     for name, r in run["routes"].items():
         it, got = r["iters"], r["launches"]
-        dep = abs(r["centres"][0] - ref) / abs(ref)
-        cpu_dep = F32_CPU_DEPARTURE[f"{name} {et}"]
+        w = r["centres"][0]
+        dep = abs(w - ref) / abs(ref)
+        w_cpu, it_cpu = F32_CPU[f"{name} {et}"]
+        cpu_dep = abs(w_cpu - ref) / abs(ref)
+        spread = abs(w - w_cpu) / abs(w_cpu - ref)
         tag = f"f32 {et}{n} {name}"
         gates.check(r["residual"] <= r["rtol"], f"{tag}: {it} iterations to residual {r['residual']:.2e} "
                                                 f"<= {r['rtol']:.0e}")
         gates.check(r["bitwise_repeat"], f"{tag}: two calls equal bit for bit")
-        gates.check(dep <= 2 * cpu_dep, f"{tag}: centre {r['centres'][0]:.8f}, departure {dep:.3e} from the f64 "
-                                        f"centre <= 2 x the CPU's {cpu_dep:.3e}")
+        gates.check(spread <= F32_CENTRE_SPREAD, f"{tag}: centre {w:.10f} against the CPU's {w_cpu:.10f}: "
+                                                 f"{spread:.3e} of the CPU's departure {cpu_dep:.3e} from the "
+                                                 f"f64 centre <= {F32_CENTRE_SPREAD}")
+        gates.check(abs(it - it_cpu) <= F32_ITER_SPREAD * it_cpu + 2,
+                    f"{tag}: {it} iterations against the CPU's {it_cpu} (within {F32_ITER_SPREAD:.0%} + 2)")
         if "MultigridShellSystem" in name:
             want = {"spmv_f32": 7 * lv * (it + 1) + (it if name.endswith(".solve") else 0),
                     "spmv_f32v": it if name.endswith("solve_df") else 0}
@@ -3429,11 +3499,12 @@ def f32_phase(gates, et, n=F32_N, device="cuda"):
             gates.check(all(got[k] == v for k, v in want.items()),
                         f"{tag}: launches { {k: got[k] for k in want} } == {want}")
         secs = min(r["seconds"])
-        rec = {"case": tag, "route": name, "iters": it, "residual": r["residual"], "seconds": r["seconds"],
-               "ms_per_iteration": 1e3 * secs / max(it, 1), "centre": r["centres"][0], "departure": dep,
-               "cpu_departure": cpu_dep, "launches": got}
-        print(f"  {tag}: {it} iterations, {secs:.3f} s ({rec['ms_per_iteration']:.3f} ms per iteration), "
-              f"centre departure {dep:.3e} (CPU {cpu_dep:.3e}), launches {got}", flush=True)
+        rec = {"case": tag, "route": name, "iters": it, "cpu_iters": it_cpu, "residual": r["residual"],
+               "seconds": r["seconds"], "ms_per_iteration": 1e3 * secs / max(it, 1), "centre": w, "cpu_centre": w_cpu,
+               "departure": dep, "cpu_departure": cpu_dep, "centre_spread": spread, "launches": got}
+        print(f"  {tag}: {it} iterations (CPU {it_cpu}), {secs:.3f} s ({rec['ms_per_iteration']:.3f} ms per "
+              f"iteration), centre departure {dep:.3e} (CPU {cpu_dep:.3e}, card - CPU {spread:.2e} of it), "
+              f"launches {got}", flush=True)
         recs.append(rec)
     return recs
 
@@ -3552,6 +3623,7 @@ def phase12(gates, device="cuda", split=TOWER_SPLIT, n=F32_N):
     out["grad_plate"] = grad_plate_phase(gates, device=device)
     lap("a")
     out["f32"] = [rec for et in ("q", "t") for rec in f32_phase(gates, et, n, device=device)]
+    out["f32_scaling"] = [f32_scaling_check(gates, et, n, device=device) for et in ("q", "t")]
     out["f32_cli"] = f32_cli_phase(gates, n, device=device)
     lap("b")
     out["f32_tower"] = f32_tower_phase(gates, device=device)

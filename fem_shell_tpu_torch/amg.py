@@ -562,9 +562,7 @@ class AMGShellSystem:
     def _rhs(self, forces):
         """[n, 6] f64 forces in the system's numbering, constrained dofs
         zeroed."""
-        n = self.mesh.n_nodes
-        f = self.sys._forces_in(forces)[:, :n].T
-        return f * (self.sys.free_t[:, :n].T != 0)
+        return self.sys._forces_in(forces)[:, : self.mesh.n_nodes].T
 
     def _out(self, x):
         """f64 [n_nodes, 6] in the original numbering, unscaled."""

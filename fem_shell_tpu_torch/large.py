@@ -31,22 +31,22 @@ mode, with its f64 assembly and its own solves. Port of
 
 ``dtype=torch.float32``: the operator is assembled in f64 as above and
 cast to f32 once (one rounding per entry; the JAX package assembles in
-f32 on re-centred two-float32 coordinates, ``exact_geom``). ``exact_geom``
-is accepted and defaults on for f32, as in the JAX package, but changes
-nothing: the port's coordinates are f64, so there is nothing to
-re-centre. The ``dtype`` default stays f64 (the JAX package's is f32),
+f32 on re-centred two-float32 coordinates, ``exact_geom``). The
+constructor accepts ``exact_geom`` for the JAX signature and ignores it:
+the port's coordinates are f64, so there is nothing to re-centre. The
+``dtype`` default stays f64 (the JAX package's is f32),
 because an f32 operator is ~kappa eps32 off (4 % at 64^2; ROADMAP.md
 "Differences").
 
 - f32 ``solve``: f32 PCG, the matvec ``stencil_spmv`` in f32 (stencil
   mode: the JAX package's Pallas path) or ``soa_matvec`` in f32 (gather
-  mode); block-Jacobi applies f32 inverses of the self blocks, as the JAX
-  package does.
+  mode); block-Jacobi factors the self blocks by ``cholesky6`` in the
+  system's dtype, as ``ShellSystem`` does in either dtype.
 - f32 ``solve_df`` (stencil mode only, as in the JAX package): the f32
-  values scaled in f32 by s = rsqrt(diag), then the f64 CG whose matvec
-  reads them through ``ops/stencil_spmv.stencil_spmv_f32v`` (f32 values,
-  f64 vectors), the counterpart of the JAX package's
-  ``df_stencil_matvec_f32v``.
+  values scaled in f32 by s = rsqrt(diag) (taken in f64, rounded once),
+  then the f64 CG whose matvec reads them through
+  ``ops/stencil_spmv.stencil_spmv_f32v`` (f32 values, f64 vectors), the
+  counterpart of the JAX package's ``df_stencil_matvec_f32v``.
 - ``solve_df_refined`` needs the f64 operator and raises on f32.
 
 The strip-df pipeline (``assemble_soa_df``, ``build_strip_plan``,
@@ -102,15 +102,14 @@ class LargeShellSystem:
         """``k_max`` pads the neighbour slots (and forces gather mode when the
         mesh has more distinct offsets). ``dtype`` is the operator's and
         ``solve``'s (float64 or float32; the assembly is f64 either way).
-        ``exact_geom`` (default: on for f32) is kept for the JAX signature
-        and changes nothing (module docstring). ``dirichlet_mask``
+        ``exact_geom`` is accepted for the JAX signature and ignored
+        (module docstring). ``dirichlet_mask``
         overrides the mesh's own BC mask (multigrid coarse levels pass
         subsampled fine masks). ``reorder="rcm"`` renumbers the nodes
         first. ``device`` defaults to CUDA; pass ``"cpu"`` to run on the
         host."""
         if dtype not in (torch.float64, torch.float32):
             raise ValueError(f"LargeShellSystem(dtype={dtype}): torch.float64 or torch.float32")
-        self.exact_geom = (dtype == torch.float32) if exact_geom is None else bool(exact_geom)
         self.device = resolve_device(device)
         self._order = None
         if reorder == "rcm":
@@ -141,8 +140,7 @@ class LargeShellSystem:
         mask = mesh.dirichlet_mask() if dirichlet_mask is None else np.asarray(dirichlet_mask, bool)
         free[: p.n_nodes] = ~mask
         free[p.n_nodes :] = 0.0
-        self._free64 = torch.as_tensor(free.T.copy(), dtype=torch.float64, device=self.device)  # [6, Npad]
-        self.free_t = self._free64.to(dtype)
+        self.free_t = torch.as_tensor(free.T.copy(), dtype=torch.float64, device=self.device)  # [6, Npad]
         self._tables_cache = None
         self._coords_cache = None
         self._passes_cache = None
@@ -162,7 +160,7 @@ class LargeShellSystem:
             self._tables_cache = {
                 "tri_conn": idx(self.mesh.tri),
                 "quad_conn": idx(self.mesh.quad),
-                "free_t": self._free64,
+                "free_t": self.free_t,
                 "adj_t": self.adj_t,
             }
         return self._tables_cache
@@ -181,16 +179,15 @@ class LargeShellSystem:
                                   dev(scatter_passes(p.quad_slot, self.chunk)))
         return self._passes_cache
 
-    def _assemble_impl(self, coords, tables):
+    def assemble(self, dtype=None):
+        """BC-eliminated operator values [36, K, Npad] in ``dtype`` (default
+        the system's): the f64 assembly, cast once to f32."""
+        tables = self._tables
         tri_passes, quad_passes = self._passes
-        values = assemble_soa(self.pattern, coords, tables["tri_conn"], tables["quad_conn"], tri_passes,
+        values = assemble_soa(self.pattern, self.coords, tables["tri_conn"], tables["quad_conn"], tri_passes,
                               quad_passes, self.dm, self.dp, self.thickness, chunk=self.chunk)
-        return apply_bc_soa(values, tables["free_t"], offsets=self.offsets, adj_t=tables["adj_t"])
-
-    def assemble(self):
-        """BC-eliminated operator values [36, K, Npad] in ``dtype``: the f64
-        assembly, cast once on an f32 system."""
-        return self._assemble_impl(self.coords, self._tables).to(self.dtype)
+        values = apply_bc_soa(values, tables["free_t"], offsets=self.offsets, adj_t=tables["adj_t"])
+        return values.to(dtype or self.dtype)
 
     @functools.cached_property
     def grid(self):
@@ -224,13 +221,12 @@ class LargeShellSystem:
             if grid is None:
                 raise ValueError("method='grid' requires a detected structured grid "
                                  "(detect_structured_grid returned None for this mesh)")
-            return assemble_grid(grid, self.coords, self._free64, self.offsets,
+            return assemble_grid(grid, self.coords, self.free_t, self.offsets,
                                  self.pattern.n_pad, self.dm, self.dp, self.thickness,
                                  strip_rows=max(1, strip_nodes // grid.nxp), with_diag=with_diag)
         if method != "strip":
             raise ValueError(f"unknown method {method!r}: 'auto', 'grid' or 'strip'")
-        values = (self.assemble() if self.dtype == torch.float64
-                  else self._assemble_impl(self.coords, self._tables))  # f64 on an f32 system too
+        values = self.assemble(torch.float64)
         if with_diag:
             return values, soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
         return values
@@ -245,17 +241,16 @@ class LargeShellSystem:
         adj_t = self.adj_t
         return lambda x: soa_matvec(values, x, adj_t)
 
-    def _forces_in(self, forces, dtype=None) -> torch.Tensor:
-        """[6, Npad] device forces in ``dtype`` (default the system's) in
-        the system's numbering, zero on the padding."""
-        dtype = dtype or self.dtype
-        f = torch.as_tensor(forces, dtype=dtype).to(self.device)
+    def _forces_in(self, forces) -> torch.Tensor:
+        """[6, Npad] f64 device forces in the system's numbering, zero on
+        the padding and the constrained dofs."""
+        f = torch.as_tensor(forces, dtype=torch.float64).to(self.device)
         if self._order is not None:
             f = f[torch.as_tensor(self._order, device=self.device)]
         p = self.pattern
-        out = torch.zeros((6, p.n_pad), dtype=dtype, device=self.device)
+        out = torch.zeros((6, p.n_pad), dtype=torch.float64, device=self.device)
         out[:, : p.n_nodes] = f.T
-        return out
+        return out * self.free_t
 
     def _solution_out(self, x_t) -> torch.Tensor:
         """[n_nodes, 6] of a [6, Npad] vector, in the original numbering."""
@@ -272,24 +267,16 @@ class LargeShellSystem:
 
     def solve(self, forces, rtol: float = 1e-10, maxiter: int = 20000, precond: str = "jacobi"):
         """Assemble, then PCG in ``dtype`` to ``rtol`` with ``precond``
-        "jacobi" or "block_jacobi" (the 6x6 self blocks: Cholesky-factored
-        once in f64, inverted once in f32, as the JAX package's f32 solve
-        inverts them). Returns the displacements [n_nodes, 6] in ``dtype``
+        "jacobi" or "block_jacobi" (the 6x6 self blocks, Cholesky-factored
+        once in ``dtype``). Returns the displacements [n_nodes, 6] in ``dtype``
         on the device in the original numbering; sets ``last_cg``."""
         values = self.assemble()
-        b = self._forces_in(forces) * self.free_t
+        b = self._forces_in(forces).to(self.dtype)
         if precond == "block_jacobi":
-            blocks = soa_self_blocks(values, offsets=self.offsets, adj_t=self.adj_t)
-            if self.dtype == torch.float32:
-                inv = torch.linalg.inv(blocks)
+            l_blocks = cholesky6(soa_self_blocks(values, offsets=self.offsets, adj_t=self.adj_t))
 
-                def apply_prec(r):
-                    return torch.einsum("nab,bn->an", inv, r).contiguous()
-            else:
-                l_blocks = cholesky6(blocks)
-
-                def apply_prec(r):
-                    return cholesky6_solve(l_blocks, r.T).T.contiguous()
+            def apply_prec(r):
+                return cholesky6_solve(l_blocks, r.T).T.contiguous()
             res = pcg(self._matvec(values), b, rtol=rtol, maxiter=maxiter, apply_prec=apply_prec)
         elif precond == "jacobi":
             diag = soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
@@ -303,14 +290,22 @@ class LargeShellSystem:
         """(S A S, s): the assembled operator symmetrically scaled by s =
         diag(A)^-1/2 (1 where the diagonal is not positive), rows first,
         as the JAX package scales it, in ``dtype`` (on f32, in f32 as the
-        JAX package's ``_solve_df_impl_f32`` scales)."""
+        JAX package's ``_solve_df_impl_f32`` scales). On f32, s is rsqrt
+        taken in f64 and rounded once: the f32 rsqrt of the card, of the
+        CPU and of the JAX package each miss the correctly rounded value in
+        a different share of entries, which moves the f32 solve's
+        iterations (ROADMAP.md "Differences")."""
         values = self.assemble()
         diag = soa_diagonal(values, offsets=self.offsets, adj_t=self.adj_t)
-        s = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))  # [6, Npad]
+        s = torch.where(diag > 0, torch.rsqrt(diag.double()).to(diag.dtype), torch.ones_like(diag))  # [6, Npad]
+        return self._scale(values, s), s
+
+    def _scale(self, values, s):
+        """S A S for values [36, K, Npad] and s [6, Npad], rows first."""
         k, npad = values.shape[1], values.shape[2]
         v4 = values.reshape(6, 6, k, npad) * s[:, None, None, :]
         v4 = v4 * _col_values(s, self.offsets, self.adj_t)[None]
-        return v4.reshape(36, k, npad), s
+        return v4.reshape(36, k, npad)
 
     def _cg_identity(self, values, b, rtol, maxiter):
         """f64 CG on the scaled operator with the identity preconditioner
@@ -336,7 +331,7 @@ class LargeShellSystem:
                                       "_solve_df_impl_f32 is stencil-only)")
         values, s = self._scaled()
         s = s.to(torch.float64)
-        b = self._forces_in(forces, torch.float64) * (self.free_t != 0) * s
+        b = self._forces_in(forces) * s
         res = self._cg_identity(values, b, rtol, maxiter)
         self.last_iters = int(res.iters)
         self.last_residual = float(res.residual)
@@ -364,7 +359,7 @@ class LargeShellSystem:
             raise ValueError("solve_df_refined needs the f64 operator: construct "
                              "LargeShellSystem(..., dtype=torch.float64)")
         values, s = self._scaled()
-        b = self._forces_in(forces) * (self.free_t != 0) * s
+        b = self._forces_in(forces) * s
         out = refine(lambda rhs, tol, it: self._cg_identity(values, rhs, tol, it), self._true_residual(values, b),
                      b, rtol, n_refine, inner_rtol, inner_maxiter, verbose)
         self.last_iters = sum(out.inner_iters)

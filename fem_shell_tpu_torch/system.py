@@ -122,8 +122,7 @@ class ShellSystem:
         self.adj = idx(self.pattern.adj)
         self._contrib = idx(contributor_table(self.pattern))
         free = ~mesh.dirichlet_mask()
-        self._free64 = torch.as_tensor(free, dtype=torch.float64, device=self.device)
-        self.free_mask = self._free64.to(dtype)
+        self.free_mask = torch.as_tensor(free, dtype=dtype, device=self.device)
 
     @functools.cached_property
     def _corners(self):
@@ -142,7 +141,7 @@ class ShellSystem:
         n, k = self.pattern.adj.shape
         blocks = scatter_to_ell(ke_tri, ke_quad, n, k, self._contrib)
         del ke_tri, ke_quad
-        blocks = apply_dirichlet_to_ell(blocks, self.adj, self._free64)
+        blocks = apply_dirichlet_to_ell(blocks, self.adj, self.free_mask.to(torch.float64))
         return BlockEllMatrix(blocks.to(self.dtype), self.adj)
 
     def assemble(self) -> BlockEllMatrix:

@@ -133,7 +133,7 @@ def test_grid_families_match_jax(et, ul):
 def _spied(monkeypatch, sys_):
     calls = []
     monkeypatch.setattr(tlarge, "assemble_grid", lambda *a, **kw: calls.append("grid") or "grid")
-    monkeypatch.setattr(sys_, "assemble", lambda: calls.append("strip") or "strip")
+    monkeypatch.setattr(sys_, "assemble", lambda *a, **kw: calls.append("strip") or "strip")
     return calls
 
 

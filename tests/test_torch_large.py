@@ -14,9 +14,9 @@ quad plate) and gather mode (the same plate renumbered at random).
 - ``solve_df_refined`` within 1e-8 of the JAX ``ShellSystem`` f64 solve
   (tests/test_refined_ecorr.py), its true residual below its rtol 1e-11:
   the double-double iterate reaches below an f64 x's own floor;
-- the f32 system (tests/test_torch_f32.py holds its solves) keeps
-  ``exact_geom``, and ``solve_df_refined`` on it raises; an unknown
-  ``reorder`` or ``dtype`` raises.
+- the f32 system (tests/test_torch_f32.py holds its solves) assembles
+  the same with ``exact_geom`` on or off, and ``solve_df_refined`` on it
+  raises; an unknown ``reorder`` or ``dtype`` raises.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -105,7 +105,8 @@ def test_f32_and_strip_routes_raise():
     c = _case("stencil")
     mesh, mat = mesh_from_jax(c["jmesh"]), material_from_jax(JMAT)
     f32 = LargeShellSystem(mesh, mat, dtype=torch.float32, device="cpu")
-    assert f32.exact_geom and not LargeShellSystem(mesh, mat, device="cpu").exact_geom
+    off = LargeShellSystem(mesh, mat, dtype=torch.float32, exact_geom=False, device="cpu")
+    assert torch.equal(f32.assemble(), off.assemble())  # exact_geom changes nothing
     with pytest.raises(ValueError, match="f64 operator"):
         f32.solve_df_refined(c["forces"])
     with pytest.raises(ValueError, match="float64 or torch.float32"):

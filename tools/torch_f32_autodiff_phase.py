@@ -9,8 +9,12 @@ chiprun_out/f32_autodiff_phase.json.
 
 One GPU. ``--device cpu --split 2 --n 16`` rehearses it on the host (the
 kernel check and the launch gates need the card and are skipped there).
-``--device cpu --departures`` prints the port's f32 centre departures at
---n on the CPU, the source of chip_smoke.F32_CPU_DEPARTURE.
+``--device cpu --cpu-reference`` prints each f32 route's centre and
+iterations at --n on the CPU, the source of chip_smoke.F32_CPU.
+``--scaling`` runs only chip_smoke.f32_scaling_check with its CGs (the
+f32 solve_df's scaling on the card against the CPU's, and the CG over
+each device's f32 rsqrt scaling on either device) and writes
+chiprun_out/f32_scaling.json.
 """
 import argparse
 import json
@@ -30,14 +34,19 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--split", type=int, default=cs.TOWER_SPLIT)
     ap.add_argument("--n", type=int, default=cs.F32_N)
-    ap.add_argument("--departures", action="store_true")
+    ap.add_argument("--cpu-reference", action="store_true")
+    ap.add_argument("--scaling", action="store_true")
     args = ap.parse_args()
-    if args.departures:
-        for key, dep in cs.f32_departures(args.n, device=args.device).items():
-            print(f"    {key!r}: {dep:.3e},", flush=True)
+    if args.cpu_reference:
+        for key, (centre, iters) in cs.f32_cpu_reference(args.n, device=args.device).items():
+            print(f"    {key!r}: ({centre!r}, {iters}),", flush=True)
         return 0
     gates = cs.Gates()
     out = {}
+    if args.scaling:
+        out["f32_scaling"] = [cs.f32_scaling_check(gates, et, args.n, device=args.device, cg=True)
+                              for et in ("q", "t")]
+        return finish(gates, out, "f32_scaling.json")
     if args.device == "cuda":
         from fem_shell_tpu_torch.ops import _build
 
@@ -52,10 +61,14 @@ def main() -> int:
         out["f32v_kernel"] = cs.f32v_kernel_phase(gates, [("q", 64), ("t", 64), ("t", 1024)], {64: 200, 1024: 20},
                                                   bandwidth, peaks)
     elif args.n not in (cs.F32_N,):
-        cs.F32_CPU_DEPARTURE.update(cs.f32_departures(args.n, device="cpu"))  # a rehearsal's own size
+        cs.F32_CPU.update(cs.f32_cpu_reference(args.n, device="cpu"))  # a rehearsal's own size
     out.update(cs.phase12(gates, device=args.device, split=args.split, n=args.n))
+    return finish(gates, out, "f32_autodiff_phase.json")
+
+
+def finish(gates, out, name) -> int:
     cs.OUT_DIR.mkdir(exist_ok=True)
-    (cs.OUT_DIR / "f32_autodiff_phase.json").write_text(json.dumps(out, indent=1, default=str))
+    (cs.OUT_DIR / name).write_text(json.dumps(out, indent=1, default=str))
     if gates.failed:
         print(f"{len(gates.failed)} gate(s) failed: {gates.failed}", file=sys.stderr)
         return 1
