@@ -275,6 +275,33 @@ before the last line:
    iterations, solutions within F32_TOWER_GATE (1e-3) of max|u| of the
    CPU's, one elem_stiffness<3> launch.
 
+13. The sharded solvers (parallel/), after a first line with the GPU
+   count (torch.cuda.device_count() and nvidia-smi -L). (a)
+   parallel/dryrun.py's paths 1-4 and 7 over two gloo ranks on the card
+   and over NCCL on min(count, 4) ranks, and over two gloo ranks on the
+   host's CPU in a background process: every dry-run assert; each card
+   answer within DRYRUN_U_GATE of max|u| of the CPU ranks' (1e-9; path 2,
+   a CG stopped at rtol 1e-6, 1e-8; path 4, the f32 V-cycle, 1e-6) with
+   the iterations within DRYRUN_ITER_GATE; a second solve bit for bit;
+   gloo and NCCL bit for bit where they ran the same rank count. (b)
+   Test-G quad SHARD_N^2 (6,303,750 DOF) written by the port's meshgen and
+   solved by the CLI's --devices 2 --precond mg --backend gloo (and nccl
+   with two GPUs) in a subprocess: exit 0, fewer than 40 iterations, the
+   rtol; then on two gloo ranks in this process ShardedMGShellSystem (f64)
+   and ShardedMGDFShellSystem.solve_df(rtol=1e-9): the centre within 1e-3
+   of 0.1064045 and 1e-6 of the single-device f64
+   MultigridShellSystem.solve, the compensated true residual on the
+   single-device operator within twice that solve's (an f64 iterate's
+   floor, far above 1e-9 at this size), fewer than 40 iterations; build
+   and solve seconds, s per iteration, halo and psum bytes per iteration
+   per rank, peak bytes and kernel launches per rank; each rank's padded
+   window stencil_spmv (f64, and f32 in the MG-df cycle) against the
+   plain slice-and-einsum version (ERR_GATE), with their times. (c) The
+   30-step tower demo with run_structure(devices=2) (gloo) against
+   devices=1: the same coupling iterations in every step, every step
+   within SHARD_TOWER_GATE (1e-10) of max|u|. The ranks' kernel launches
+   join the kernels line.
+
 Prints one JSON line with every ported kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
@@ -3633,6 +3660,359 @@ def phase12(gates, device="cuda", split=TOWER_SPLIT, n=F32_N):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: the sharded solvers
+# ----------------------------------------------------------------------
+# 13(a): each card dry-run answer against the CPU ranks' (of max|u|), and
+# the iteration spread; path 4's preconditioner is the f32 V-cycle. Path
+# 2's Jacobi-PCG stops at rtol 1e-6 on the strip: the card's answer (the
+# element kernel's operator, the stencil kernel's sums) lay 5.73e-9 of
+# max|u| from the CPU's at equal iterations (H100, two ranks on one card), the
+# CG's amplification of last-bit differences at a loose stop, so its
+# bound is 1e-8. Path 2's strip is 16 x ranks elements long: a run on
+# another rank count than the CPU's two has another mesh there, and is
+# compared on the other paths only.
+DRYRUN_U_GATE = {"1": 1e-9, "2": 1e-8, "3": 1e-9, "4": 1e-6, "7": 1e-9}
+DRYRUN_ITER_GATE = {"1": 1, "2": 1, "3": 1, "4": 2, "7": 1}
+DRYRUN_CPU_RANKS = 2
+# 13(b): Test-G quad at full width through the solver CLI --devices 2
+SHARD_N = 1024
+# 13(c): run_structure(devices=2) against devices=1 on the 30-step tower
+# demo, of max|u| (4.2e-13 measured on the CPU: Jacobi PCG on the ranks
+# against block-Jacobi on one device, both to rtol 1e-10;
+# tests/test_torch_parallel_entry.py holds the CPU to the same bound)
+SHARD_TOWER_GATE = 1e-10
+SHARD_TOWER_STEPS = 30
+
+
+def gpu_counts():
+    """(torch.cuda.device_count(), the GPUs nvidia-smi -L lists)."""
+    listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60).stdout
+    return torch.cuda.device_count(), sum(1 for ln in listed.splitlines() if ln.startswith("GPU "))
+
+
+def start_cpu_dryrun():
+    """The dry run on two gloo ranks on the host's cores, in a background
+    process (one thread each, beside the card's runs) while the card's
+    parts of phase 13 run; ``collect_cpu_dryrun`` waits for it."""
+    import os
+
+    path = OUT_DIR / "dryrun_cpu.npz"
+    path.unlink(missing_ok=True)
+    proc = subprocess.Popen([sys.executable, "-m", "fem_shell_tpu_torch.parallel.dryrun", "2", "--device", "cpu",
+                             "--save", str(path)], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path, time.perf_counter()
+
+
+def collect_cpu_dryrun(gates, started, timeout=600):
+    proc, path, t0 = started
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+    secs = time.perf_counter() - t0
+    ok = proc.returncode == 0 and path.exists()
+    gates.check(ok, f"13(a) dry run on 2 CPU ranks: exit {proc.returncode} ({secs:.1f} s)")
+    for line in log.strip().splitlines()[-10:]:
+        print(f"    cpu | {line}", flush=True)
+    if not ok:
+        return None, secs
+    data = np.load(path)
+    meta = json.loads(str(data["meta"]))
+    return {k: dict(v, u=data[f"u{k}"]) for k, v in meta.items() if k != "launches"}, secs
+
+
+def dryrun_phase(gates, cpu_started, count, device="cuda"):
+    """13(a): parallel/dryrun paths 1-4 and 7 over gloo with two ranks on
+    the card and over NCCL with min(count, 4) ranks, and the CPU ranks'
+    run: every dry-run assert, card against CPU, a second solve bit for
+    bit (every path on NCCL; on gloo paths 1-4, where path 7's 5,817
+    host-staged iterations would take another ~30 s), gloo against NCCL
+    at equal rank counts bit for bit."""
+    from fem_shell_tpu_torch.parallel.dryrun import dryrun
+
+    runs = {}
+    n_nccl = min(count, 4) if device == "cuda" else 0
+    plan = [("gloo", 2)] + ([("nccl", n_nccl)] if n_nccl else []) + ([("gloo", n_nccl)] if n_nccl > 2 else [])
+    for backend, n in plan:
+        tag = f"{backend}x{n}"
+        t0 = time.perf_counter()
+        try:
+            repeat = ("1", "2", "3", "4") if backend == "gloo" else tuple(DRYRUN_U_GATE)
+            runs[tag] = dryrun(n, device=device, backend=backend, repeat=repeat)
+            ok, why = True, ""
+        except (AssertionError, RuntimeError) as exc:
+            ok, why = False, f": {exc}"
+        secs = time.perf_counter() - t0
+        gates.check(ok, f"13(a) dry run, {n} {backend} rank(s) on {device} ({secs:.1f} s){why}")
+        if ok:
+            runs[tag]["seconds"] = secs
+    cpu, cpu_s = collect_cpu_dryrun(gates, cpu_started)
+    rows = []
+    for tag, res in runs.items():
+        n = int(tag.split("x")[1])
+        for p in DRYRUN_U_GATE:
+            r = res[p]
+            if "repeat_equal" in r:
+                gates.check(r["repeat_equal"], f"13(a) {tag} path {p}: a second solve bitwise equal")
+            row = {"run": tag, "path": p, "iters": r["iters"], "residual": r["residual"], "seconds": r["seconds"]}
+            if cpu is not None and (p != "2" or n == DRYRUN_CPU_RANKS):
+                c = cpu[p]
+                err = float(np.abs(r["u"] - c["u"]).max()) / float(np.abs(c["u"]).max())
+                d_it = abs(int(r["iters"]) - int(c["iters"]))
+                gates.check(err <= DRYRUN_U_GATE[p] and d_it <= DRYRUN_ITER_GATE[p],
+                            f"13(a) {tag} path {p}: {err:.2e} of max|u| from the CPU ranks' (<= "
+                            f"{DRYRUN_U_GATE[p]:.0e}), {r['iters']} vs {c['iters']} iterations "
+                            f"(+-{DRYRUN_ITER_GATE[p]})")
+                row.update(rel_err_cpu=err, cpu_iters=c["iters"])
+            rows.append(row)
+    for tag, res in runs.items():  # gloo against NCCL where both ran the same rank count
+        backend, n = tag.split("x")
+        other = f"ncclx{n}"
+        if backend == "gloo" and other in runs:
+            same = all(np.array_equal(res[p]["u"], runs[other][p]["u"]) for p in DRYRUN_U_GATE)
+            gates.check(same, f"13(a) gloo and nccl on {n} ranks: every path bit for bit")
+    if n_nccl == 1:
+        print(f"  13(a) gloo against nccl not compared: nccl ran {n_nccl} rank(s) on {count} GPU(s)", flush=True)
+    for row in rows:
+        print(f"  13(a) {row}", flush=True)
+    launches = {tag: res["launches"] for tag, res in runs.items()}
+    return {"runs": rows, "launches": launches, "cpu_s": cpu_s,
+            "cpu": {p: {k: v for k, v in r.items() if k != "u"} for p, r in (cpu or {}).items()}}
+
+
+def halo_bytes(system, itemsize):
+    """Bytes one rank sends per ring halo exchange of a strip system: [6,
+    Wp] each way."""
+    return 2 * 6 * system.w_pad * itemsize
+
+
+def mg_iteration_bytes(mg, cg_itemsize):
+    """(halo bytes, psum bytes) one rank sends per CG iteration of a sharded
+    multigrid solve: the fine matvec's exchange in the CG's dtype, then per
+    sharded level 2 nu + 1 exchanges in the levels' dtype (smoothing and
+    residual) and the psum of the coarse level's full vector (and, onto a
+    sharded coarse level, of the correction), all-gathered to S - 1 peers."""
+    s = mg.n_shards
+    item = 8 if mg.dtype == torch.float64 else 4
+    halo = halo_bytes(mg.levels[0].sys, cg_itemsize)
+    psum = 0
+    for li in range(mg.n_sharded):
+        lvl, nxt = mg.levels[li], mg.levels[li + 1]
+        halo += (2 * mg.nu_smooth + 1) * halo_bytes(lvl.sys, item)
+        n_full = getattr(nxt, "n_full", None) or nxt.npad
+        psum += (s - 1) * 6 * n_full * item * (2 if hasattr(nxt, "n_full") else 1)
+    return halo, psum
+
+
+def shard_scale_phase(gates, count, n=SHARD_N, device="cuda"):
+    """13(b): Test-G quad n x n through the solver CLI --devices 2 --precond
+    mg --backend gloo (and nccl with two GPUs), then on two gloo ranks in
+    this process the CLI's system (ShardedMGShellSystem, f64) and
+    ShardedMGDFShellSystem.solve_df(rtol=1e-9), each against the analytic
+    centre, the single-device f64 MultigridShellSystem.solve and the true
+    residual on the single-device operator. The true residual of an f64
+    iterate has a floor ~eps || |A| |u| || (~n^4: 8.5e-11 of ||b|| at
+    64^2, 1.36e-9 at 128^2), so it is computed compensated
+    (stencil_resid_dd) and held to max(1e-9, twice the single-device f64
+    solve's at rtol 1e-10), beside the normwise backward error."""
+    import os
+    import re
+    import shutil
+
+    from fem_shell_tpu_torch import Material, MultigridShellSystem
+    from fem_shell_tpu_torch.mesh import load_mesh_and_forces
+    from fem_shell_tpu_torch.meshgen import main as meshgen_main
+    from fem_shell_tpu_torch.ops.stencil_resid import stencil_resid_dd
+    from fem_shell_tpu_torch.ops.stencil_spmv import stencil_spmv
+    from fem_shell_tpu_torch.parallel import comm as pcomm
+    from fem_shell_tpu_torch.parallel.df_shard import ShardedMGDFShellSystem
+    from fem_shell_tpu_torch.parallel.mg_shard import ShardedMGShellSystem
+    from fem_shell_tpu_torch.parallel.sharded import make_device_mesh
+    from fem_shell_tpu_torch.parallel.stencil_shard import check_spmv_rank
+
+    work = OUT_DIR / "shard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = str(work / "plateG")
+    rec = {"n": n, "dofs": 6 * (n + 1) ** 2}
+    t0 = time.perf_counter()
+    meshgen_main(f"q {n} {n} 0 0 10 10 0,0,0,0 300 2 1 z".split() + [base])
+    rec["meshgen_s"] = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cli_runs = []
+    for backend in ["gloo"] + (["nccl"] if count >= 2 and device == "cuda" else []):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "fem_shell_tpu_torch.utils.cli", "-nu", "0.3", "-e", "1e7",
+                              "-t", "0.5", "-mesh", base + ".xda", "--devices", "2", "--precond", "mg",
+                              "--backend", backend, "--device", device], cwd=work, env=env, capture_output=True,
+                             text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        m = re.search(r"Linear solve: (\d+) CG iterations, relative residual (\S+)", res.stdout)
+        it, r = (int(m.group(1)), float(m.group(2))) if m else (None, float("nan"))
+        gates.check(res.returncode == 0 and m is not None and it < 40 and r <= 1e-10,
+                    f"13(b) cli --devices 2 --precond mg --backend {backend}: exit {res.returncode}, {it} "
+                    f"iterations < 40, residual {r:.2e} <= 1e-10 ({secs:.1f} s)")
+        cli_runs.append({"backend": backend, "returncode": res.returncode, "iters": it, "residual": r,
+                         "seconds": secs, "stdout": res.stdout.strip().splitlines()[-4:],
+                         "stderr": res.stderr[-2000:]})
+        print(f"  13(b) cli {backend}: {cli_runs[-1]['stdout']}", flush=True)
+    rec["cli"] = cli_runs
+
+    mesh, forces = load_mesh_and_forces(base + ".xda")
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    centre = mesh.n_nodes // 2
+    t0 = time.perf_counter()
+    mg1 = MultigridShellSystem(mesh, mat, device=device)
+    u1 = mg1.solve(forces, rtol=1e-10, maxiter=2000)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rec["single_s"] = time.perf_counter() - t0
+    w1 = float(u1[centre, 2])
+    fine = mg1.levels[0]
+    b = mg1._staged_forces(forces) * fine.free_t
+    b_norm = float(torch.linalg.vector_norm(b))
+
+    def true_res(u):
+        """(||b - A u|| / ||b||, ||b - A u|| / || |A| |u| ||), the residual
+        compensated."""
+        x = torch.zeros_like(b)
+        x[:, : mesh.n_nodes] = torch.as_tensor(u, dtype=torch.float64, device=b.device).T
+        rn = float(torch.linalg.vector_norm(stencil_resid_dd(fine.values, x, b, fine.offsets)))
+        scale = float(torch.linalg.vector_norm(stencil_spmv(fine.values.abs(), x.abs(), fine.offsets)))
+        return rn / b_norm, rn / scale
+
+    tr1, be1 = true_res(u1.cpu().numpy())
+    gate_tr = max(1e-9, 2 * tr1)
+    rec["single"] = {"iters": int(mg1.last_cg.iters), "centre_w": w1, "true_residual": tr1,
+                     "backward_error": be1, "true_residual_gate": gate_tr}
+    print(f"  13(b) single-device MultigridShellSystem.solve {n}^2: {rec['single']} ({rec['single_s']:.1f} s)",
+          flush=True)
+    del u1
+    with make_device_mesh(2, device=device, backend="gloo") as dm:
+        runs = []
+        for kind in ("ShardedMGShellSystem f64", "ShardedMGDFShellSystem solve_df"):
+            dm.run(pcomm.peak_memory, [True] * dm.size)
+            dm.reset_launches()
+            t0 = time.perf_counter()
+            if kind.startswith("ShardedMGShellSystem"):
+                system = ShardedMGShellSystem(mesh, mat, dm, dtype=torch.float64)
+                solve, rtol = system.solve, 1e-10
+            else:
+                system = ShardedMGDFShellSystem(mesh, mat, dm)
+                solve, rtol = system.solve_df, 1e-9
+            build_s = time.perf_counter() - t0
+            build_launches = [dict(c) for c in dm.launches]
+            dm.reset_launches()
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                u = solve(forces, rtol=rtol, maxiter=300)
+                times.append(time.perf_counter() - t0)
+            it, res = system.last_iters, system.last_residual
+            solve_launches = [{k: v // 2 for k, v in c.items()} for c in dm.launches]
+            peaks = dm.run(pcomm.peak_memory, [False] * dm.size)
+            w = float(u[centre, 2])
+            tr, be = true_res(u)
+            gate_res = max(gate_tr, 2 * rtol)
+            mg = system if kind.startswith("ShardedMGShellSystem") else system.mg
+            halo_b, psum_b = mg_iteration_bytes(mg, 8)
+            gates.check(abs(w - KIRCHHOFF) < 1e-3 and abs(w - w1) <= 1e-6 * abs(w1),
+                        f"13(b) {kind} {n}^2 on 2 gloo ranks: centre {w:.9f} within 1e-3 of {KIRCHHOFF} and "
+                        f"{abs(w - w1) / abs(w1):.2e} <= 1e-6 of the single-device solve's {w1:.9f}")
+            gates.check(tr <= gate_res and it < 40 and res <= rtol,
+                        f"13(b) {kind}: true residual {tr:.2e} <= {gate_res:.2e} (single-device operator, "
+                        f"compensated; backward error {be:.2e}), {it} iterations < 40, CG residual {res:.2e} <= "
+                        f"{rtol:.0e}")
+            row = {"system": kind, "build_s": build_s, "solve_s": times, "iters": it, "residual": res,
+                   "s_per_iter": times[-1] / max(it, 1), "centre_w": w, "true_residual": tr,
+                   "backward_error": be,
+                   "levels": {"n_sharded": mg.n_sharded, "n_levels": mg.n_levels},
+                   "halo_bytes_per_iter_per_rank": halo_b, "psum_bytes_per_iter_per_rank": psum_b,
+                   "peak_bytes_per_rank": peaks, "build_launches_per_rank": build_launches,
+                   "solve_launches_per_rank": solve_launches}
+            # the per-rank product against its plain version, after the counts
+            # are read; its launches are not the main path's
+            counted = dict(pcomm.RANK_LAUNCHES)
+            levels = [(f"fine {row['levels']}", mg.levels[0].sys.key)]
+            if not kind.startswith("ShardedMGShellSystem"):
+                levels.append(("fine f64", system.fine64.key))
+            row["spmv_checks"] = []
+            for what, key in levels:
+                for r, chk in enumerate(dm.run(check_spmv_rank, [(key, 7, 20)] * dm.size)):
+                    rel = chk["max_abs_err"] / chk["max_abs_y"]
+                    gate = ERR_GATE[torch.float32 if "float32" in chk["dtype"] else torch.float64]
+                    gates.check(rel <= gate, f"13(b) {kind} {what} rank {r}: stencil_spmv on the padded window "
+                                             f"{chk['shape']} {chk['dtype']} vs matvec_plain {rel:.2e} <= {gate:.0e}")
+                    row["spmv_checks"].append(dict(chk, rank=r, level=what))
+            pcomm.RANK_LAUNCHES.update(counted)
+            smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=60).stdout.strip() if device == "cuda" else ""
+            row["nvidia_smi_apps"] = smi
+            runs.append(row)
+            print(f"  13(b) {kind}: build_s={build_s:.2f} solve_s={['%.3f' % t for t in times]} iters={it} "
+                  f"s/iter={row['s_per_iter'] * 1e3:.2f} ms w={w:.9f} true_res={tr:.2e} levels={row['levels']} "
+                  f"halo_B/iter/rank={halo_b} psum_B/iter/rank={psum_b} peak/rank={peaks} "
+                  f"launches/rank build={build_launches} solve={solve_launches} apps=[{smi}]", flush=True)
+            del system, mg, u
+    rec["runs"] = runs
+    del mg1, fine, b
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def shard_tower_phase(gates, steps=SHARD_TOWER_STEPS, device="cuda"):
+    """13(c): the tower demo with run_structure(devices=2) (two gloo ranks on
+    the card) against devices=1: the same coupling iterations in every
+    step, every step's solution within SHARD_TOWER_GATE of max|u|."""
+    from fem_shell_tpu_torch.coupling.demo import run_demo
+
+    t0 = time.perf_counter()
+    one, _ = run_demo(max_timesteps=steps, verbose=False, device=device)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two, _ = run_demo(max_timesteps=steps, verbose=False, device=device, devices=2, backend="gloo")
+    two_s = time.perf_counter() - t0
+    scale = float(np.abs(one.solutions).max())
+    diff = float(np.abs(two.solutions - one.solutions).max()) / scale
+    gates.check(two.timesteps == one.timesteps == steps and two.step_iterations == one.step_iterations,
+                f"13(c) tower run_structure(devices=2): {two.timesteps} steps, coupling iterations per step equal "
+                f"to devices=1's ({sum(two.step_iterations)} vs {sum(one.step_iterations)})")
+    gates.check(diff <= SHARD_TOWER_GATE,
+                f"13(c) tower devices=2 vs devices=1: {diff:.2e} <= {SHARD_TOWER_GATE:.0e} of max|u|")
+    rec = {"steps": steps, "one_s": one_s, "two_s": two_s, "rel_diff": diff,
+           "coupling_solves": len(two.iterations), "cg_iters_mean": float(np.mean(two.iterations)),
+           "cg_iters_mean_one": float(np.mean(one.iterations)),
+           "solve_two": two.perf.stats("solve"), "solve_one": one.perf.stats("solve")}
+    print(f"  13(c) tower: devices=1 {one_s:.1f} s, devices=2 {two_s:.1f} s, rel diff {diff:.2e}, "
+          f"CG iters/solve {rec['cg_iters_mean']:.1f} (one device {rec['cg_iters_mean_one']:.1f})", flush=True)
+    return rec
+
+
+def phase13(gates, count, cpu_started, device="cuda", n=SHARD_N, steps=SHARD_TOWER_STEPS):
+    """Phase 13 with its parts' seconds; the kernel launches of the ranks'
+    main-path runs (comm.RANK_LAUNCHES, summed over ranks) under
+    "rank_launches"."""
+    from fem_shell_tpu_torch.parallel import comm as pcomm
+
+    pcomm.reset_rank_launches()
+    out, laps, t0 = {}, {}, time.perf_counter()
+    out["dryrun"] = dryrun_phase(gates, cpu_started, count, device=device)
+    laps["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["scale"] = shard_scale_phase(gates, count, n=n, device=device)
+    laps["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["tower"] = shard_tower_phase(gates, steps=steps, device=device)
+    laps["c"] = time.perf_counter() - t0
+    out["phase13_s"] = laps
+    out["rank_launches"] = dict(pcomm.RANK_LAUNCHES)
+    print(f"  phase13_s={sum(laps.values()):.1f} {laps} rank_launches={out['rank_launches']}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
@@ -3651,6 +4031,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()} host {platform.machine()} "
           f"longdouble eps {np.finfo(np.longdouble).eps}", flush=True)
+    gpus, listed = gpu_counts()
+    print(f"gpus: torch.cuda.device_count()={gpus} nvidia-smi -L={listed}", flush=True)
 
     print("phase 1: build", flush=True)
     t0 = time.perf_counter()
@@ -3779,6 +4161,12 @@ def main() -> int:
     p12_launches = ([r["forward_launches"] for r in p12["grad"]["runs"]] + [r["launches"] for r in p12["f32"]]
                     + [p12["f32_tower"]["launches"]])
 
+    print("phase 13: the sharded solvers (parallel/: the dry run's paths 1-4 and 7 over gloo and NCCL on the "
+          f"card and over gloo on the CPU, Test-G {SHARD_N}^2 through the CLI's --devices 2, the tower with "
+          "run_structure(devices=2))", flush=True)
+    p13 = phase13(gates, gpus, start_cpu_dryrun())
+    p13_launches = p13["rank_launches"]
+
     entries = []
     for dtype, meta in KERNELS.items():
         mine = [r for r in kern if r["dtype"] == str(dtype)[6:]]
@@ -3821,6 +4209,7 @@ def main() -> int:
         entry["launches"] += sum(r[key] for r in p12_launches)  # the f32 systems of phase 12
         entry["launches"] += sum(r["launches_total"][key] for r in roof_runs)
         entry["launches"] += sum(r["launches"][key] for r in large_routes)  # LargeShellSystem's stencil mode
+        entry["launches"] += p13_launches[key]  # the ranks of phase 13's sharded solves
         if key == "spmv_f64":  # and every f64 V-cycle level, held against the plain version in phases 8-9
             checks = [l for r in mg_runs + [roof] for l in r["plain_checks"]["levels"]]
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [l["max_abs_err"] for l in checks])
@@ -3867,7 +4256,8 @@ def main() -> int:
                          + sum(r["launches_total"][key] for r in roof_runs)
                          + gather["launches"][key] + amg64["ctor_launches"][key]
                          + amg32["ctor_launches"][key] + sum(r["launches"][key] for r in large_routes)
-                         + (coupled_elem3 if m == 3 else 0) + sum(r[key] for r in p12_launches)),
+                         + (coupled_elem3 if m == 3 else 0) + sum(r[key] for r in p12_launches)
+                         + p13_launches[key]),
             "max_abs_err": max(r["max_abs_err"] for r in mine + cases),
             "max_rel_err": max(r["rel_err"] for r in mine + cases),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -3891,7 +4281,7 @@ def main() -> int:
          "unstructured": unstructured, "unstructured_cli": ucli,
          "coupled": {"phase11_s": phase11_s, "tower_demo": tower, "coupled_cli": coupled_cli,
                      "tower_scale": tower_scale, "recovery": recovery, "stress_cli": stress_cli},
-         "f32v_kernel": f32v, "phase12": p12},
+         "f32v_kernel": f32v, "phase12": p12, "phase13": p13, "gpus": {"torch": gpus, "nvidia_smi": listed}},
         indent=1))
     if gates.failed:
         print(f"chip_smoke: {len(gates.failed)} gate(s) failed", file=sys.stderr)

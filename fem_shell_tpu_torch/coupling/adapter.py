@@ -11,7 +11,10 @@ and writes per-timestep output with displaced geometry (:377-408).
 Port of ``fem_shell_tpu/coupling/adapter.py``, the one module of the
 coupling package that touches the device: the structure solve is the
 port's ``ShellSystem`` (f64, block-Jacobi PCG) on ``device``, assembled
-and factored once per run. The coupling itself (transport, mapping,
+and factored once per run; with ``devices > 1`` it is the sharded
+``parallel.sharded.ShardedShellSystem`` (Jacobi PCG) over one mesh of
+ranks that lives for the run and is closed at its end, the analog of the
+reference's MPI-parallel participant. The coupling itself (transport, mapping,
 IQN-ILS) is host numpy; each coupling iteration brings the solution to
 the host once, as f64 numpy. Every device call stays on the caller's
 thread.
@@ -88,6 +91,7 @@ def run_structure(
     dtype=torch.float64,
     devices: int = 1,
     device=None,
+    backend: Optional[str] = None,
 ) -> CoupledRunResult:
     """Execute the coupled structure solve until the coupling ends.
 
@@ -96,14 +100,28 @@ def run_structure(
     fem-shell_precice.cpp:377-408). ``dtype`` is the ``ShellSystem``'s
     (float64 or float32); the solution comes to the host as f64 either way.
     ``device`` defaults to CUDA; pass ``"cpu"`` to solve on the host.
+    ``devices > 1`` solves over that many ranks (``backend`` "nccl" or
+    "gloo", as ``parallel.sharded.make_device_mesh`` takes it); the
+    coupling surface stays whole on the host.
     """
+    device = resolve_device(device)  # before any transport opens
+    dmesh = None
+    try:
+        if devices > 1:
+            from fem_shell_tpu_torch.parallel.sharded import make_device_mesh
+
+            dmesh = make_device_mesh(devices, device=device, backend=backend)
+        return _run_structure(mesh, material, config, dt, dead_axis, solver_name, transport, on_timestep, rtol,
+                              maxiter, max_timesteps, dtype, device, dmesh)
+    finally:
+        if dmesh is not None:
+            dmesh.close()
+
+
+def _run_structure(mesh, material, config, dt, dead_axis, solver_name, transport, on_timestep, rtol, maxiter,
+                   max_timesteps, dtype, device, dmesh) -> CoupledRunResult:
     from fem_shell_tpu_torch.system import ShellSystem
 
-    if devices > 1:
-        raise NotImplementedError(
-            f"run_structure(devices={devices}): the device-parallel structure participant is not "
-            "ported yet (ROADMAP.md Queue 1 item 9)")
-    device = resolve_device(device)  # before any transport opens
     perf = PerfLog()
     interface = Participant(solver_name, config, 0, 1, transport=transport)
     dims = interface.get_dimensions()
@@ -137,12 +155,23 @@ def run_structure(
         iface_forces = interface.read_block_vector_data(force_id, vertex_ids)
 
     with perf.scope("setup"):
-        system = ShellSystem(mesh, material, dtype=dtype, device=device)
-        # geometry is fixed across the whole coupled run: assemble + factor
-        # the preconditioner ONCE instead of per coupling iteration (the
-        # reference re-assembles in every equation_systems.solve(),
-        # fem-shell_precice.cpp:271)
-        repeat_solve = system.make_repeat_solver(rtol=rtol, maxiter=maxiter)
+        if dmesh is not None:
+            from fem_shell_tpu_torch.parallel.sharded import ShardedShellSystem
+
+            # the sharded system assembles once, when it is built; each
+            # coupling iteration is one solve over the ranks
+            sharded = ShardedShellSystem(mesh, material, dmesh, dtype=dtype)
+
+            def repeat_solve(f):
+                u = sharded.solve(f, rtol=rtol, maxiter=maxiter)
+                return torch.as_tensor(u), sharded.last_iters, sharded.last_residual
+        else:
+            system = ShellSystem(mesh, material, dtype=dtype, device=device)
+            # geometry is fixed across the whole coupled run: assemble + factor
+            # the preconditioner ONCE instead of per coupling iteration (the
+            # reference re-assembles in every equation_systems.solve(),
+            # fem-shell_precice.cpp:271)
+            repeat_solve = system.make_repeat_solver(rtol=rtol, maxiter=maxiter)
 
     n = mesh.n_nodes
     pre_sols = np.zeros((n, 6))

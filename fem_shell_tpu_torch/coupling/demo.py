@@ -51,11 +51,14 @@ def run_demo(
     verbose: bool = True,
     config=None,
     device=None,
+    devices: int = 1,
+    backend=None,
 ):
     """Run the coupled demo in-process; returns (structure_result, fluid_history).
     ``config`` overrides the default tower XML (path or CouplingConfig —
     tests use it to vary scheme knobs like extrapolation-order);
-    ``device`` is the structure solve's (default CUDA)."""
+    ``device`` is the structure solve's (default CUDA); ``devices > 1``
+    shards it over that many ranks joined over ``backend``."""
     if config is None:
         config = CONFIG
     mesh = tower_mesh()
@@ -87,6 +90,8 @@ def run_demo(
         rtol=rtol,
         max_timesteps=max_timesteps,
         device=device,
+        devices=devices,
+        backend=backend,
     )
     th.join(timeout=60)
     return result, fluid_out.get("history")

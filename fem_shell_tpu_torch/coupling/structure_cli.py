@@ -85,15 +85,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--rtol", type=float, default=1e-10)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--devices", type=int, default=1,
-                    help="device-parallel structure solve (MPI-participant analog; "
-                         "values > 1 are not ported yet)")
+                    help="device-parallel structure solve over this many ranks (MPI-participant analog)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the structure solve (default cuda)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the ranks' transport with --devices > 1 (default nccl on cuda, gloo on cpu)")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.devices > 1:
-        print("ERROR: --devices > 1 (the device-parallel structure participant) is not ported yet "
-              "(ROADMAP.md Queue 1 item 9)")
-        return 2
 
     from fem_shell_tpu_torch.coupling.adapter import run_structure
     from fem_shell_tpu_torch.materials import Material
@@ -121,7 +118,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         on_timestep=on_timestep,
         rtol=args.rtol,
         max_timesteps=args.steps,
+        devices=args.devices,
         device=args.device,
+        backend=args.backend,
     )
     finalize_out()
     print(f"Exiting Structure Solver ({result.timesteps} timesteps)")

@@ -41,10 +41,14 @@ exit codes and output files:
   --stress    with -out: recover element-center and nodal stresses
               (ops/recovery.py, on --device) into the .vtu cell and point
               data and the .vtk point data
+  --devices   N > 1: the sharded solve over N rank processes
+              (parallel/): ShardedMGShellSystem with --precond mg, else
+              ShardedShellSystem (Jacobi PCG), f32 with --f32
   --device    cuda (default) | cpu
-
-The one flag whose path is not ported yet, --devices > 1, prints an ERROR
-naming ROADMAP.md and exits 2.
+  --backend   nccl | gloo: the ranks' transport with --devices > 1
+              (default nccl on cuda, one GPU per rank; gloo lets ranks
+              share a card, and is the CPU's). XLA's collectives have no
+              such switch: it is the port's, like --device
 """
 from __future__ import annotations
 
@@ -95,26 +99,17 @@ def _parse(argv: List[str]):
         help="df solve plus iterative refinement on the true residual (with "
         "--precond mg: against the exact class-table operator)",
     )
-    ap.add_argument("--devices", type=int, default=1, help="values > 1 are not ported yet")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks of the sharded solve (values > 1; parallel/)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device to solve on (default cuda)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the ranks' transport with --devices > 1 (default nccl on cuda, gloo on cpu)")
     return ap.parse_args(argv)
-
-
-def _unported(args) -> Optional[str]:
-    """The requested path that is not ported yet, as '<what> ... item N', or
-    None."""
-    if args.devices > 1:
-        return "--devices > 1 (sharded solves) is not ported yet (ROADMAP.md Queue 1 item 9)"
-    return None
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parse(sys.argv[1:] if argv is None else argv)
-    why = _unported(args)
-    if why is not None:
-        print(f"ERROR: {why}")
-        return 2
 
     import math
 
@@ -146,7 +141,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = args.device
     dtype = torch.float32 if args.f32 else torch.float64
 
-    if args.precond == "mg":
+    if args.devices > 1:
+        from fem_shell_tpu_torch.parallel.sharded import ShardedShellSystem, make_device_mesh
+
+        with make_device_mesh(args.devices, device=device, backend=args.backend) as dmesh:
+            if args.precond == "mg":
+                from fem_shell_tpu_torch.parallel.mg_shard import ShardedMGShellSystem
+
+                system = ShardedMGShellSystem(mesh, material, dmesh, dtype=dtype)
+            else:
+                system = ShardedShellSystem(mesh, material, dmesh, dtype=dtype)
+            u = torch.as_tensor(system.solve(forces, rtol=args.rtol, maxiter=args.maxiter))
+        iters, res = system.last_iters, system.last_residual
+    elif args.precond == "mg":
         from fem_shell_tpu_torch.mg import MultigridShellSystem, detect_structured_grid
 
         if detect_structured_grid(mesh) is None:

@@ -21,8 +21,10 @@ utils/cli.py) against the JAX package's, on the CPU.
 - the ``--f32`` routes (ShellSystem with block-Jacobi, ``--precond mg`` and ``--precond mg --df`` on the f32 levels) print the
   JAX CLI's lines and write its .vtu arrays at f32 tolerances
   (``test_f32_routes_match_jax``);
-- ``--devices > 1``, the one flag whose path is not ported, exits 2 with
-  an ERROR naming ROADMAP.md.
+- ``--devices 2`` (the sharded solve; ``test_unported_flag_exits_2``
+  keeps the name it had while the flag was refused) prints the JAX CLI's
+  lines and writes its .vtu arrays to 1e-10, over two gloo ranks on the
+  host.
 """
 import filecmp
 import re
@@ -224,12 +226,22 @@ def test_f32_routes_match_jax(tmp_path, capsys, route):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"]], ids=["devices"])
 def test_unported_flag_exits_2(tmp_path, capsys, flag):
+    """The flag no longer exits 2: the sharded solve (ShardedShellSystem,
+    Jacobi PCG) prints the JAX CLI's lines and writes its arrays."""
     base = str(tmp_path / "plate")
     meshgen(PLATE.split() + [base])
-    rc, out = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base, "--device", "cpu"] + flag, capsys)
-    assert rc == 2 and len(out) == 1
-    assert out[0].startswith("ERROR: ") and "not ported yet (ROADMAP.md Queue 1 item" in out[0]
-    assert not (tmp_path / "plate.vtu").exists()
+    rc_j, jout = _run(jcli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_j"] + flag, capsys)
+    rc_t, tout = _run(cli, MATERIAL + ["-mesh", base + ".xda", "-out", base + "_t", "--device", "cpu"] + flag,
+                      capsys)
+    assert rc_j == rc_t == 0 and len(jout) == len(tout) and tout[-1] == "All done :)"
+    for lj, lt in zip(jout, tout):
+        assert _NUM.sub("#", lj) == _NUM.sub("#", lt.replace(base + "_t", base + "_j"))
+        if lt.startswith("Linear solve:"):
+            (ij, rj), (it, rt) = (_NUM.findall(line) for line in (lj, lt))
+            assert abs(int(ij) - int(it)) <= 1 and float(rj) < 1e-10 and float(rt) < 1e-10, (lj, lt)
+    vj, vt = _vtu_arrays(base + "_j.vtu"), _vtu_arrays(base + "_t.vtu")
+    for name in ("displacement", "rotation"):
+        assert np.abs(vt[name] - vj[name]).max() <= 1e-10 * np.abs(vj[name]).max(), name
 
 
 def _vtu_sections(path):

@@ -16,7 +16,10 @@ the JAX package's fem_shell_tpu/coupling, on the CPU.
   (1e-12), writing the Exodus series;
 - run_structure(dtype=float32) for two steps against the JAX adapter's
   f32 run (5e-3 of max|u|, the same coupling iterations);
-- devices > 1 raising with its ROADMAP item;
+- devices > 1 with a transport the host cannot give (nccl on the CPU)
+  raising before any transport opens, and the structure CLI passing
+  --devices and --backend on to run_structure (the sharded run itself:
+  tests/test_torch_parallel_entry.py);
 - make_timestep_writer's Exodus series and VTU files against the JAX
   writer's bytes.
 
@@ -302,17 +305,36 @@ def test_f32_structure_matches_jax():
     assert np.abs(got.solutions - ref.solutions).max() <= 5e-3 * scale
 
 
-@pytest.mark.parametrize("kw,item", [({"devices": 2}, "item 9")], ids=["devices"])
+@pytest.mark.parametrize("kw,item", [({"devices": 2, "backend": "nccl"}, "nccl backend runs on CUDA")],
+                         ids=["devices"])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """devices > 1 is ported; a transport the host cannot give still
+    raises, before any transport opens or rank starts (the tower XML's
+    port is never bound: no peer is waiting)."""
+    with pytest.raises(ValueError, match=item):
         adapter.run_structure(demo.tower_mesh(), Material(0.3, 1e6, 0.1), demo.CONFIG, device="cpu", **kw)
 
 
-def test_structure_cli_devices_exits_2(capsys):
-    rc = structure_cli.main(["-nu", "0.3", "-e", "1e6", "-t", "0.1", "-mesh", "absent.xda", "-config",
-                             demo.CONFIG, "-dt", "0.01", "--devices", "2"])
+def test_structure_cli_devices_exits_2(tmp_path, monkeypatch, capsys):
+    """--devices no longer exits 2: the CLI passes it and --backend on to
+    run_structure."""
+    from fem_shell_tpu_torch.mesh import write_xda
+
+    seen = {}
+
+    def fake_run_structure(mesh, material, config, **kw):
+        seen.update(kw, n_nodes=mesh.n_nodes)
+        return adapter.CoupledRunResult(timesteps=0, solutions=np.zeros((0, mesh.n_nodes, 6)), iterations=[])
+
+    monkeypatch.setattr(adapter, "run_structure", fake_run_structure)
+    path = str(tmp_path / "tower.xda")
+    write_xda(demo.tower_mesh(), path)
+    rc = structure_cli.main(["-nu", "0.3", "-e", "1e6", "-t", "0.1", "-mesh", path, "-config", demo.CONFIG,
+                             "-dt", "0.01", "--devices", "2", "--backend", "gloo", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert rc == 2 and len(out) == 1 and out[0].startswith("ERROR: ") and "item 9" in out[0]
+    assert rc == 0 and out[-1] == "All done :)"
+    assert (seen["devices"], seen["backend"], seen["device"]) == (2, "gloo", "cpu")
+    assert seen["n_nodes"] == demo.tower_mesh().n_nodes
 
 
 def test_timestep_writer_matches_jax(tmp_path):

@@ -123,9 +123,14 @@ def _imports(path: Path):
             yield node.module
 
 
+PARALLEL = ("comm", "partition", "sharded", "stencil_shard", "mg_shard", "df_shard", "unstructured_shard", "dryrun")
+
+
 def test_sources_import_no_jax():
     files = sorted((ROOT / "fem_shell_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    parallel = ROOT / "fem_shell_tpu_torch" / "parallel"
+    assert all(parallel / f"{m}.py" in files for m in PARALLEL)  # the sharded solvers are scanned too
     for f in files:
         for mod in _imports(f):
             assert not _FOREIGN.search(mod), f"{f.relative_to(ROOT)} imports {mod}"
@@ -169,6 +174,12 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         recover_stresses_nodal(mesh, mat, np.zeros((mesh.n_nodes, 6)))
     with pytest.raises(RuntimeError, match="CUDA"):  # before any transport opens
         run_structure(tower_mesh(), mat, CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA"):  # before any rank starts
+        run_structure(tower_mesh(), mat, CONFIG, devices=2)
+    from fem_shell_tpu_torch.parallel.sharded import make_device_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_device_mesh(2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
