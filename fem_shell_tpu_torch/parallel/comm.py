@@ -23,9 +23,12 @@ live as long as their ``DeviceMesh``:
   the transport: nothing switches on a failure.
 - Every reduction sums in rank order: the parts are gathered, then added
   rank 0, 1, ... in f64. So every rank holds bitwise the same dot
-  products and takes the same branch of a CG's stopping test, gloo and
-  NCCL give bitwise the same answers, and a repeated solve is bitwise
-  equal.
+  products and takes the same branch of a CG's stopping test, and a
+  repeated solve is bitwise equal. The two transports carry the same
+  bytes into the same sums, so gloo and NCCL agree bit for bit: held on
+  every dry-run path at two and four ranks on four H100 GPUs
+  (``tools/torch_parallel_phase.py --parts a``; ``chip_smoke.py`` 13(a)
+  checks it wherever there are two or more GPUs).
 - A rank's exception ends the mesh: the controller stops every rank and
   raises with the rank's traceback. It polls the ranks while it waits, so
   a rank that dies is reported too, and the process group's timeout ends
@@ -424,15 +427,16 @@ class DeviceMesh:
         if self._closed:
             return
         self._closed = True
+        started = [p for p in self._procs if p.pid is not None]
         if graceful:
             for q in self._cmds:
                 q.put(None)
-            for p in self._procs:
+            for p in started:
                 p.join(timeout=30)
-        for p in self._procs:
+        for p in started:
             if p.is_alive():
                 p.terminate()
-        for p in self._procs:
+        for p in started:
             p.join(timeout=5)
             if p.is_alive():
                 p.kill()

@@ -7,15 +7,16 @@ hi and lo parts travel together in each halo exchange, and emulated-f64
 dots. A GPU has native f64, so here the operator, the vectors, the dots
 and the CG are f64:
 
-- ``ShardedDFShellSystem``: the f64 strip operator
-  (``stencil_shard.assemble_vals_spmd``), Jacobi-PCG in f64; its matvec
-  (``make_df_matvec``) is one halo exchange of [6, Wp] per direction and
-  the ``stencil_spmv<double>`` kernel on the padded window;
+- ``ShardedDFShellSystem``: ``stencil_shard.ShardedStencilSystem`` in
+  f64 (Jacobi-PCG; each matvec one halo exchange of [6, Wp] per
+  direction and the ``stencil_spmv<double>`` kernel on the padded
+  window);
 - ``ShardedMGDFShellSystem``: the f64 CG over the f64 fine operator,
   preconditioned by the row-sharded f32 V-cycle of
   ``mg_shard.ShardedMGShellSystem`` applied to the residual rounded to
   f32 (the JAX ``prec`` applies it to the hi part): the distributed form
-  of ``MultigridShellSystem.solve_df``.
+  of ``MultigridShellSystem.solve_df``. The fine operator is assembled
+  once, in f64; the V-cycle's fine level is it rounded to f32.
 
 ``make_df_matvec`` and ``pcg_df_spmd`` keep their JAX names with this f64
 meaning. ``split_df_vals``, ``df_matvec_window``, ``halo_exchange_df``
@@ -26,8 +27,10 @@ from __future__ import annotations
 
 import torch
 
+from fem_shell_tpu_torch.meshgen import MeshGenParams, generate
+from fem_shell_tpu_torch.mg import detect_structured_grid
 from fem_shell_tpu_torch.parallel.comm import DeviceMesh
-from fem_shell_tpu_torch.parallel.mg_shard import ShardedMGShellSystem, vcycle
+from fem_shell_tpu_torch.parallel.mg_shard import ShardedMGShellSystem, strip_rows, vcycle
 from fem_shell_tpu_torch.parallel.sharded import ShardedSystemBase, pcg_spmd
 from fem_shell_tpu_torch.parallel.stencil_shard import ShardedStencilSystem, matvec_spmd
 
@@ -41,14 +44,6 @@ def make_df_matvec(comm, st):
     if st.vals.dtype != torch.float64:
         raise TypeError(f"the df matvec runs on the f64 operator, got {st.vals.dtype}")
     return lambda x_l: matvec_spmd(comm, st, x_l)
-
-
-def _solve_df_rank(comm, arg):
-    key, b, rtol, maxiter = arg
-    st = comm.state[key]
-    b = torch.as_tensor(b, dtype=torch.float64, device=comm.device) * st.free
-    x, it, res = pcg_df_spmd(comm, make_df_matvec(comm, st), b, lambda r: st.inv_diag * r, rtol, maxiter)
-    return x.cpu().numpy(), it, res
 
 
 def _solve_mgdf_rank(comm, arg):
@@ -73,11 +68,6 @@ class ShardedDFShellSystem(ShardedStencilSystem):
         super().__init__(mesh, material, device_mesh, dtype=torch.float64, chunk=chunk, l_force=l_force,
                          dirichlet_mask=dirichlet_mask)
 
-    def solve(self, forces, rtol: float = 1e-10, maxiter: int = 20000):
-        parts = self._run_solve(_solve_df_rank, [(self.key, b, rtol, maxiter)
-                                                 for b in self.split_forces(forces)])
-        return self.join_solution(parts)
-
 
 class ShardedMGDFShellSystem(ShardedSystemBase):
     """The production solver over ranks: the f64 outer CG over the f64
@@ -87,15 +77,22 @@ class ShardedMGDFShellSystem(ShardedSystemBase):
     psum transfers."""
 
     def __init__(self, mesh, material, device_mesh: DeviceMesh, **kw):
-        self.mg = ShardedMGShellSystem(mesh, material, device_mesh, dtype=torch.float32, **kw)
+        if isinstance(mesh, MeshGenParams):
+            mesh, _, _ = generate(mesh)
+        grid = detect_structured_grid(mesh)
+        if grid is None:
+            raise ValueError("sharded multigrid requires a row-major structured grid mesh")
         self._bind(device_mesh)
-        self.mesh = self.mg.mesh
+        self.mesh = mesh
+        # the f64 fine operator is assembled once; the f32 fine level is it
+        # rounded on each rank
+        self.fine64 = ShardedStencilSystem(mesh, material, device_mesh, dtype=torch.float64,
+                                           chunk=kw.get("chunk", 8192),
+                                           l_force=strip_rows(grid.nyp, device_mesh.size) * grid.nxp)
+        self.mg = ShardedMGShellSystem(mesh, material, device_mesh, dtype=torch.float32, fine_source=self.fine64,
+                                       **kw)
         self.n_levels = self.mg.n_levels
         self.n_sharded = self.mg.n_sharded
-        fine = self.mg.levels[0]
-        self.fine64 = ShardedStencilSystem(self.mesh, material, device_mesh, dtype=torch.float64, l_force=fine.l)
-        if self.fine64.l != fine.sys.l or self.fine64.offsets != fine.sys.offsets:
-            raise ValueError("the f64 fine strips must match the f32 fine level's")
 
     def solve_df(self, forces, rtol: float = 1e-9, maxiter: int = 300):
         """forces [N, 6] -> f64 displacements [N, 6] (numpy); sets

@@ -7,7 +7,8 @@ with the same asserts.
 2. ``ShardedStencilSystem`` (halo strips) on a 1 x 2n strip plate
    (8 x 16n quads): converged, symmetric across the strip to 1e-8, and
    within 1e-4 of the single-device f64 ``ShellSystem`` block-Jacobi
-   solve.
+   solve; then ("2t") solved again to rtol 1e-10, for comparisons of two
+   runs at the CG's precision.
 3. ``ShardedMGShellSystem`` (f64) on the 64x64 Test-G plate: converged to
    1e-9 in fewer than 40 iterations, centre 0.106465 +- 5e-5.
 4. ``ShardedMGDFShellSystem`` (f64 CG, f32 V-cycle) on the same plate:
@@ -21,10 +22,11 @@ Paths 5, 5b (the 2-D process grid, ``grid2d_shard``) and 6 (the sharded
 grid-df assembly, ``grid_asm_shard``) are not ported yet (ROADMAP.md
 Queue 1 item 9); the run says so.
 
-    python -m fem_shell_tpu_torch.parallel.dryrun 2 --device cpu [--save out.npz]
+    python -m fem_shell_tpu_torch.parallel.dryrun 2 --device cpu [--save out.npz] [--repeat 1,2]
 
 ``--save`` writes each path's displacements (``u1``, ``u2``, ...) and a
-JSON ``meta`` of the rest to an .npz.
+JSON ``meta`` of the rest, the ranks' kernel launches included, to an
+.npz; ``--repeat`` names the paths solved twice.
 """
 from __future__ import annotations
 
@@ -108,6 +110,12 @@ def dryrun(n: int, device=None, backend: Optional[str] = None, repeat: Iterable[
         assert halo_err < 1e-4, f"halo path disagrees with the single-device solve: rel {halo_err:.3e}"
         out["2"].update(sym_err=sym_err, ref_err=halo_err, l=halo.l, w_pad=halo.w_pad)
         mark(f"path 2/7 halo-strip OK ({halo.last_iters} iters)")
+        # "2t": the same strip to rtol 1e-10, where two runs that sum in other
+        # orders agree to the CG's precision (at rtol 1e-6 a last-bit
+        # difference grows to ~1e-9 of max|u|)
+        run("2t", halo, halo.solve, rows2 * fac2, rtol=1e-10, maxiter=20000)
+        assert halo.last_residual < 1e-10, f"halo path at rtol 1e-10: res {halo.last_residual:.2e}"
+        mark(f"path 2/7 halo-strip at rtol 1e-10 OK ({halo.last_iters} iters)")
 
         # path 3: sharded geometric multigrid on Test-G 64^2 (w 0.106465)
         mesh3, rows3, fac3 = generate(MeshGenParams("q", 64, 64, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z"))
@@ -167,8 +175,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     ap.add_argument("--save", default=None, help="write the results to this .npz")
+    ap.add_argument("--repeat", default="", help="comma-separated paths to solve twice, bit for bit")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    res = dryrun(args.n, device=args.device, backend=args.backend)
+    res = dryrun(args.n, device=args.device, backend=args.backend, repeat=[p for p in args.repeat.split(",") if p])
     if args.save:
         paths = {k: v for k, v in res.items() if k != "launches"}
         meta = {k: {f: x for f, x in v.items() if f != "u"} for k, v in paths.items()}

@@ -14,7 +14,7 @@ halo-exchange path — port of ``fem_shell_tpu/parallel/mg_shard.py``.
   replicated: every rank smooths the same full coarse grid with the port's
   ``LargeShellSystem`` in stencil mode (its matvec ``stencil_spmv``);
 - the coarsest level applies a replicated dense inverse
-  (``np.linalg.inv`` of ``mg._densify``).
+  (``torch.linalg.inv`` of ``mg._densify``, in f64 on each rank).
 
 The outer solver is PCG with rank-ordered dot products
 (``sharded.pcg_spmd``), preconditioned by the V-cycle. Every level is
@@ -41,21 +41,29 @@ from fem_shell_tpu_torch.parallel.sharded import ShardedSystemBase, pcg_spmd
 from fem_shell_tpu_torch.parallel.stencil_shard import ShardedStencilSystem, matvec_spmd
 
 
-def _even_ceil(a: int, b: int) -> int:
-    c = -(-a // b)
+def strip_rows(nyp: int, s: int) -> int:
+    """Grid rows per rank of a sharded level: ceil(nyp / s) rounded up to
+    an even count, so a local row's parity is its global parity."""
+    c = -(-nyp // s)
     return c + (c % 2)
 
 
 class _ShardedLevel:
-    """Row-partitioned level: a ShardedStencilSystem over whole grid rows."""
+    """Row-partitioned level: a ShardedStencilSystem over whole grid rows,
+    or ``source``'s f64 strips rounded to ``dtype``."""
 
-    def __init__(self, mesh_l, material, device_mesh, dtype, grid_l, mask_l, chunk):
+    def __init__(self, mesh_l, material, device_mesh, dtype, grid_l, mask_l, chunk, source=None):
         s = device_mesh.size
         self.nxp, self.nyp = grid_l.nxp, grid_l.nyp
-        self.rows = _even_ceil(self.nyp, s)
+        self.rows = strip_rows(self.nyp, s)
         self.l = self.rows * self.nxp
-        self.sys = ShardedStencilSystem(mesh_l, material, device_mesh, dtype=dtype, chunk=chunk,
-                                        l_force=self.l, dirichlet_mask=mask_l)
+        if source is not None:
+            if source.l != self.l or source.mesh is not mesh_l:
+                raise ValueError("the f64 fine strips must be this level's")
+            self.sys = source.rounded(dtype)
+        else:
+            self.sys = ShardedStencilSystem(mesh_l, material, device_mesh, dtype=dtype, chunk=chunk,
+                                            l_force=self.l, dirichlet_mask=mask_l)
         self.n_full = s * self.l  # padded full-vector length
 
 
@@ -143,8 +151,9 @@ def _build_rank(comm, arg):
     last = levels[-1]
     tmp = _Level(values=last.values, offsets=tuple(last.offsets), free_t=last.free_t, inv_diag=last.inv_diag,
                  nyp=last.nyp, nxp=last.nxp, npad=last.npad)
-    dense = _densify(tmp).to(torch.float64).cpu().numpy()
-    last.dense_inv = torch.as_tensor(np.linalg.inv(dense), dtype=dtype, device=comm.device)
+    # on the rank's device with its own threads (a rank's numpy BLAS would
+    # start a thread per core in every rank)
+    last.dense_inv = torch.linalg.inv(_densify(tmp).to(torch.float64)).to(dtype)
     comm.state[key] = types.SimpleNamespace(levels=levels, omega=spec["omega"], nu=spec["nu_smooth"])
 
 
@@ -243,7 +252,11 @@ def _solve_rank(comm, arg):
 
 class ShardedMGShellSystem(ShardedSystemBase):
     """Multi-rank shell solver: halo-sharded fine levels, psum transfers, a
-    replicated coarse tail, MG-preconditioned CG."""
+    replicated coarse tail, MG-preconditioned CG.
+
+    ``fine_source``: the fine level's f64 strips, already built on these
+    ranks (``l_force`` = the level's strip length); the fine level is then
+    their operator rounded to ``dtype``, not a second assembly."""
 
     def __init__(
         self,
@@ -256,6 +269,7 @@ class ShardedMGShellSystem(ShardedSystemBase):
         omega: float = 0.7,
         coarse_max: int = 8,
         chunk: int = 8192,
+        fine_source: Optional[ShardedStencilSystem] = None,
     ):
         if isinstance(mesh, MeshGenParams):
             mesh, _, _ = generate(mesh)
@@ -295,12 +309,13 @@ class ShardedMGShellSystem(ShardedSystemBase):
             types_l, conn_l = _grid_conn(nxp_l, nyp_l, grid.elem_type, grid.ul_lr)
             mesh_l = (mesh if l == 0
                       else ShellMesh(cg.reshape(-1, 3), types_l, conn_l, np.zeros((0, 3), np.int32)))
-            l_lanes = _even_ceil(nyp_l, s) * nxp_l
+            l_lanes = strip_rows(nyp_l, s) * nxp_l
             # halo strips need L >= 2 * ceil(halo, 128); narrower levels, and
             # every level below the first of them, are replicated
             w_pad = _ceil_to(nxp_l + 2, 128)
             if still_sharding and l_lanes >= 2 * w_pad and l < n_levels - 1:
-                lvl = _ShardedLevel(mesh_l, material, device_mesh, dtype, grid_l, mg_.reshape(-1, 6), chunk)
+                lvl = _ShardedLevel(mesh_l, material, device_mesh, dtype, grid_l, mg_.reshape(-1, 6), chunk,
+                                    source=fine_source if l == 0 else None)
                 prev = self.levels[-1] if self.levels else None
                 if isinstance(prev, _ShardedLevel) and 2 * lvl.rows < prev.rows:
                     raise ValueError("coarse shard rows must cover the fine restriction window")

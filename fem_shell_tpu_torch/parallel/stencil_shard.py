@@ -32,6 +32,7 @@ built and keeps the operator on the ranks.
 """
 from __future__ import annotations
 
+import copy
 import types
 from typing import Optional
 
@@ -98,21 +99,29 @@ def assemble_vals_spmd(comm, p):
         col = np.broadcast_to((c - row0 + wp)[:, :, None], kslot.shape)
         scatter_elements(win, coords, c, kslot * width + col, dm, dp, t, chunk=p["chunk"])
     vals = halo_reduce(comm, st, win.reshape(36 * k, width)).reshape(6, 6, k, l)
+    del win  # the window is as large as the operator: free it before the masking
 
     # BC masking: rows by the local mask, columns by the haloed mask
     free_l = torch.as_tensor(p["free"], dtype=f64, device=dev)  # [6, L]
     free_ext = halo_exchange(comm, st, free_l)
-    vals = vals * free_l[:, None, None, :]
+    vals.mul_(free_l[:, None, None, :])
     for si, off in enumerate(offsets):
         vals[:, :, si, :] *= free_ext[None, :, off + wp:off + wp + l]
     eye = torch.eye(6, dtype=f64, device=dev)
     vals[:, :, st.k0, :] += eye[:, :, None] * (1.0 - free_l)[None, :, :]
 
-    dtype = p["dtype"]
+    return _set_operator(st, vals, free_l, p["dtype"])
+
+
+def _set_operator(st, vals, free_l, dtype):
+    """Round the masked f64 operator [6, 6, K, L] once to ``dtype`` into
+    ``st``: the values zero-padded to [36, K, Wp+L+Wp], the Jacobi inverse
+    diagonal and the free mask [6, L]."""
+    k, l, wp = len(st.offsets), st.l, st.wp
     vals = vals.to(dtype)
     diag = torch.diagonal(vals[:, :, st.k0, :]).T  # [6, L]
     st.inv_diag = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)).contiguous()
-    st.vals = torch.zeros((36, k, width), dtype=dtype, device=dev)
+    st.vals = torch.zeros((36, k, l + 2 * wp), dtype=dtype, device=vals.device)
     st.vals[:, :, wp:wp + l] = vals.reshape(36, k, l)
     st.free = free_l.to(dtype)
     return st
@@ -172,6 +181,14 @@ def check_spmv_rank(comm, arg):
 def _build_rank(comm, arg):
     key, p = arg
     comm.state[key] = assemble_vals_spmd(comm, p)
+
+
+def _round_rank(comm, arg):
+    key, src_key, dtype = arg
+    src = comm.state[src_key]
+    st = types.SimpleNamespace(wp=src.wp, l=src.l, offsets=src.offsets, k0=src.k0)
+    core = src.vals[:, :, src.wp:src.wp + src.l].reshape(6, 6, len(src.offsets), src.l)
+    comm.state[key] = _set_operator(st, core, src.free, dtype)
 
 
 def _solve_rank(comm, arg):
@@ -263,6 +280,18 @@ class ShardedStencilSystem(ShardedSystemBase):
         free[n:] = 0.0
         self.free = free.T.reshape(6, s, self.l).transpose(1, 0, 2)  # [S, 6, L]
         self.device_mesh.run(_build_rank, [(self.key, self._payload(si)) for si in range(s)])
+
+    def rounded(self, dtype) -> "ShardedStencilSystem":
+        """This system with its f64 operator rounded once to ``dtype`` on the
+        ranks: what ``dtype`` would build from the same strips, without a
+        second assembly."""
+        if self.dtype != torch.float64:
+            raise ValueError(f"rounded() starts from the f64 operator, not {self.dtype}")
+        other = copy.copy(self)
+        other._bind(self.device_mesh)
+        other.dtype = dtype
+        self.device_mesh.run(_round_rank, [(other.key, self.key, dtype)] * self.n_shards)
+        return other
 
     def _payload(self, si: int) -> dict:
         return {"wp": self.w_pad, "l": self.l, "offsets": self.offsets, "coords": self.mesh.coords,

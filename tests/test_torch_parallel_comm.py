@@ -5,7 +5,7 @@ path gloo takes for ranks on a card, bitwise repeats, a rank's exception
 raised in the controller within seconds, and the nccl backend refused
 before any rank starts where there is no GPU for each rank.
 
-Each mesh is spawned once per module. The ranks start from the package's
+Each mesh is spawned once per module, in the background. The ranks start from the package's
 ``comm.rank_main`` and run the commands below, which they import from this
 module by name."""
 import multiprocessing
@@ -17,6 +17,7 @@ import torch
 
 from fem_shell_tpu_torch.parallel import comm as pcomm
 from fem_shell_tpu_torch.parallel.sharded import make_device_mesh
+from torch_parallel_meshes import StartingMeshes
 
 
 def _data(rank, shape=(6, 10)):
@@ -47,14 +48,17 @@ def fail_on_rank_1(comm, _):
     return None
 
 
-@pytest.fixture(scope="module", params=[2, 3], ids=["2ranks", "3ranks"])
-def mesh(request):
-    with make_device_mesh(request.param, device="cpu") as m:
-        yield m
+@pytest.fixture(scope="module")
+def meshes():
+    started = StartingMeshes(2, 3, doomed=2)
+    yield started
+    started.close()
 
 
 @pytest.mark.parametrize("staged", [False, True], ids=["direct", "staged"])
-def test_collectives_match_numpy(mesh, staged):
+@pytest.mark.parametrize("n", [2, 3], ids=["2ranks", "3ranks"])
+def test_collectives_match_numpy(meshes, n, staged):
+    mesh = meshes[n]
     s = mesh.size
     out = mesh.run(collectives, [staged] * s)
     xs = [_data(r) for r in range(s)]
@@ -82,9 +86,10 @@ def test_collectives_match_numpy(mesh, staged):
         np.testing.assert_array_equal(o["scatter"], a["scatter"])
 
 
-def test_rank_error_raises_without_hang():
+def test_rank_error_raises_without_hang(meshes):
+    meshes.wait()  # every rank of the module's meshes is running
+    m = meshes["doomed"]
     before = len(multiprocessing.active_children())
-    m = make_device_mesh(2, device="cpu")
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match="(?s)rank 1 raised:.*rank 1 fails on purpose"):
         m.run(fail_on_rank_1, [None, None])
@@ -92,7 +97,7 @@ def test_rank_error_raises_without_hang():
     assert m.closed
     with pytest.raises(RuntimeError, match="closed"):
         m.run(fail_on_rank_1, [None, None])
-    assert len(multiprocessing.active_children()) == before
+    assert len(multiprocessing.active_children()) == before - 2
 
 
 def test_nccl_without_gpus_raises_before_spawn(monkeypatch):

@@ -12,6 +12,6 @@ from fem_shell_tpu_torch.parallel.dryrun import dryrun
 @pytest.mark.slow
 def test_dryrun_two_cpu_ranks():
     out = dryrun(2, device="cpu", verbose=False)
-    assert sorted(k for k in out if k != "launches") == ["1", "2", "3", "4", "7"]
-    assert all(np.isfinite(out[p]["u"]).all() for p in ("1", "2", "3", "4", "7"))
+    assert sorted(k for k in out if k != "launches") == ["1", "2", "2t", "3", "4", "7"]
+    assert all(np.isfinite(out[p]["u"]).all() for p in ("1", "2", "2t", "3", "4", "7"))
     assert out["3"]["n_sharded"] == 2 and out["3"]["n_levels"] == 3

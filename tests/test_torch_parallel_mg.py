@@ -18,7 +18,7 @@ from fem_shell_tpu.parallel.mg_shard import ShardedMGShellSystem as JShardedMG
 from fem_shell_tpu.parallel.sharded import make_device_mesh as jmake_mesh
 from fem_shell_tpu_torch.convert import material_from_jax, mesh_from_jax
 from fem_shell_tpu_torch.parallel.mg_shard import ShardedMGShellSystem
-from fem_shell_tpu_torch.parallel.sharded import make_device_mesh
+from torch_parallel_meshes import StartingMeshes
 
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 _REF = {}
@@ -26,8 +26,9 @@ _REF = {}
 
 @pytest.fixture(scope="module")
 def meshes():
-    with make_device_mesh(2, device="cpu") as two, make_device_mesh(3, device="cpu") as three:
-        yield {2: two, 3: three}
+    started = StartingMeshes(2, 3)
+    yield started
+    started.close()
 
 
 def _jax():

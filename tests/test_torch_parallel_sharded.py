@@ -12,7 +12,22 @@ parallel/stencil_shard.py) on the CPU over gloo, against the JAX package:
   strip length, halo width and element tables equal to the JAX system's,
   and a strip narrower than two halos refused.
 
-The JAX references run once per module."""
+The JAX ``ShellSystem`` references run once per module. Tracing the JAX
+``ShardedShellSystem`` costs 1.3-2.4 s per mesh here, so its counts are
+pinned, produced with
+
+    python -c "import sys; sys.path.insert(0, 'tests'); import conftest
+      from fem_shell_tpu.data import test_e as E; from fem_shell_tpu.materials import Material
+      from fem_shell_tpu.mesh import ShellMesh; from fem_shell_tpu.meshgen import MeshGenParams, generate
+      from fem_shell_tpu.parallel.sharded import ShardedShellSystem as S, make_device_mesh
+      from fem_shell_tpu_torch.data import mixed_ibeam_mesh
+      p = Material(nu=0.3, em=1e7, thickness=0.5); b = Material(nu=0.25, em=10000, thickness=0.25)
+      for et, n, s in (('q', 16, 2), ('t', 8, 3)):
+        m, r, f = generate(MeshGenParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == 'q', 'z'))
+        x = S(m, p, make_device_mesh(s)); x.solve(r * f); print(et, n, s, x.last_iters)
+      m = mixed_ibeam_mesh(); m = ShellMesh(m.coords, m.elem_types, m.elem_conn, m.boundary_sides)
+      x = S(m, b, make_device_mesh(2)); x.solve(E.FORCES); print('ibeam', x.last_iters)"
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,28 +37,32 @@ from fem_shell_tpu.data import test_e as JE
 from fem_shell_tpu.materials import Material as JMaterial
 from fem_shell_tpu.mesh import ShellMesh as JMesh
 from fem_shell_tpu.meshgen import MeshGenParams as JParams, generate as jgenerate
-from fem_shell_tpu.parallel.sharded import ShardedShellSystem as JSharded, make_device_mesh as jmake_mesh
+from fem_shell_tpu.parallel.sharded import make_device_mesh as jmake_mesh
 from fem_shell_tpu.parallel.stencil_shard import ShardedStencilSystem as JStencil
 from fem_shell_tpu.system import ShellSystem as JSystem
 from fem_shell_tpu_torch.convert import material_from_jax, mesh_from_jax
 from fem_shell_tpu_torch.data import mixed_ibeam_mesh
-from fem_shell_tpu_torch.parallel.sharded import ShardedShellSystem, make_device_mesh
+from fem_shell_tpu_torch.parallel.sharded import ShardedShellSystem
 from fem_shell_tpu_torch.parallel.stencil_shard import ShardedStencilSystem
+from torch_parallel_meshes import StartingMeshes
 
 PLATE = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 BEAM = JMaterial(nu=0.25, em=10000, thickness=0.25)
+# the JAX ShardedShellSystem.solve counts (rtol 1e-12) at each case's shard count (above)
+JAX_SHARDED_ITERS = {"quad16": 85, "tri8": 66, "ibeam": 202}
 _REF = {}
 
 
 @pytest.fixture(scope="module")
 def meshes():
-    with make_device_mesh(2, device="cpu") as two, make_device_mesh(3, device="cpu") as three:
-        yield {2: two, 3: three}
+    started = StartingMeshes(2, 3)
+    yield started
+    started.close()
 
 
 def _case(name):
-    """(jax mesh, forces, material, shards, JAX ShellSystem u, JAX sharded
-    iterations), once per module."""
+    """(jax mesh, forces, material, shards, JAX ShellSystem u, the JAX
+    sharded iterations), once per module."""
     if name not in _REF:
         if name == "ibeam":
             m = mixed_ibeam_mesh()
@@ -53,9 +72,7 @@ def _case(name):
             jmesh, rows, fac = jgenerate(JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z"))
             forces, mat = rows * fac, PLATE
         u = np.asarray(JSystem(jmesh, mat).solve(forces, rtol=1e-13, maxiter=50000))
-        js = JSharded(jmesh, mat, jmake_mesh(s))
-        js.solve(forces)
-        _REF[name] = (jmesh, forces, mat, s, u, js.last_iters)
+        _REF[name] = (jmesh, forces, mat, s, u, JAX_SHARDED_ITERS[name])
     return _REF[name]
 
 

@@ -18,8 +18,8 @@ from fem_shell_tpu.parallel.unstructured_shard import HaloShardedShellSystem as 
 from fem_shell_tpu_torch.convert import material_from_jax
 from fem_shell_tpu_torch.data import mixed_ibeam_mesh
 from fem_shell_tpu_torch.mesh import refine_uniform
-from fem_shell_tpu_torch.parallel.sharded import make_device_mesh
 from fem_shell_tpu_torch.parallel.unstructured_shard import HaloShardedShellSystem
+from torch_parallel_meshes import StartingMeshes
 
 JMAT = JMaterial(nu=0.25, em=10000, thickness=0.25)
 _REF = {}
@@ -44,13 +44,19 @@ def _jax():
     return _REF
 
 
+@pytest.fixture(scope="module")
+def meshes():
+    started = StartingMeshes(2, 3)
+    yield started
+    started.close()
+
+
 @pytest.mark.parametrize("n_ranks", [2, 3])
-def test_halo_sharded_matches_jax(n_ranks):
+def test_halo_sharded_matches_jax(meshes, n_ranks):
     ref = _jax()
     mesh = refine_uniform(mixed_ibeam_mesh(), 1)
-    with make_device_mesh(n_ranks, device="cpu") as dmesh:
-        hs = HaloShardedShellSystem(mesh, material_from_jax(JMAT), dmesh)
-        u = hs.solve(ref["forces"], rtol=1e-10, maxiter=50000)
+    hs = HaloShardedShellSystem(mesh, material_from_jax(JMAT), meshes[n_ranks])
+    u = hs.solve(ref["forces"], rtol=1e-10, maxiter=50000)
     assert hs.last_residual < 1e-10
     assert np.abs(u - ref["u"]).max() <= 1e-9 * np.abs(ref["u"]).max()
     assert abs(hs.last_iters - ref["iters"]) <= max(3, 0.05 * ref["iters"]), (hs.last_iters, ref["iters"])

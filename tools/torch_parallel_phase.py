@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 13 alone: the sharded solvers. Builds the kernels,
 starts the CPU ranks' dry run in the background, then runs phases
-13(a)-(c) through chip_smoke.py's own functions, with their gates. Prints
-each part's seconds and writes the records to
-chiprun_out/parallel_phase.json.
+13(a)-(c) (or the ``--parts`` named) through chip_smoke.py's own
+functions, with their gates. Prints each part's seconds and writes the
+records to chiprun_out/parallel_phase.json.
 
-    python3 tools/torch_parallel_phase.py [--device cuda] [--n 1024] [--steps 30]
+    python3 tools/torch_parallel_phase.py [--device cuda] [--n 1024] [--steps 10] [--parts abc]
 
-One GPU, a few minutes; ``--device cpu --n 32 --steps 3`` rehearses it on
-the host (gloo ranks only, about three minutes).
+One GPU, about two minutes; ``--device cpu --n 32 --steps 3`` rehearses it
+on the host (gloo ranks only, about three minutes). ``--parts a`` on a
+box with two to four GPUs runs the dry run over NCCL with one GPU per
+rank (two ranks and min(count, 4)) and over gloo at the same counts, and
+holds them bit for bit.
 """
 import argparse
 import json
@@ -28,6 +31,7 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=cs.SHARD_N)
     ap.add_argument("--steps", type=int, default=cs.SHARD_TOWER_STEPS)
+    ap.add_argument("--parts", default="abc", help="which of 13(a), (b), (c) to run")
     args = ap.parse_args()
     count = 0
     if args.device == "cuda":
@@ -41,7 +45,11 @@ def main() -> int:
         _build.build_all()
         print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     gates = cs.Gates()
-    out = cs.phase13(gates, count, cs.start_cpu_dryrun(), device=args.device, n=args.n, steps=args.steps)
+    cpu = cs.start_cpu_dryrun() if "a" in args.parts else None
+    try:
+        out = cs.phase13(gates, count, cpu, device=args.device, n=args.n, steps=args.steps, parts=args.parts)
+    finally:
+        cs.stop_background()
     cs.OUT_DIR.mkdir(exist_ok=True)
     (cs.OUT_DIR / "parallel_phase.json").write_text(json.dumps(out, indent=1, default=str))
     if gates.failed:
