@@ -277,14 +277,15 @@ before the last line:
 
 13. The sharded solvers (parallel/), after a first line with the GPU
    count (torch.cuda.device_count() and nvidia-smi -L). (a)
-   parallel/dryrun.py's paths 1-4 and 7, and path 2's strip again to rtol
-   1e-10 ("2t"), over two gloo ranks on the card, over NCCL on min(count,
+   parallel/dryrun.py's paths 1-7, path 2's strip again to rtol 1e-10
+   ("2t"), the 2-D process grid (5, and 5b in f64) and the sharded grid
+   assembly (6), over two gloo ranks on the card, over NCCL on min(count,
    4) ranks (and on two where there are more GPUs) in background
    processes beside it, over gloo at that count too, and over two gloo
    ranks on the host's CPU in a background process started with the
    script: every dry-run assert; each card answer within DRYRUN_U_GATE of
    max|u| of the CPU ranks' (1e-9; path 2, a CG stopped at rtol 1e-6,
-   1e-8; path 4, the f32 V-cycle, 1e-6) with the iterations within
+   1e-8; paths 4 and 6, the f32 V-cycle, 1e-6) with the iterations within
    DRYRUN_ITER_GATE; a second solve bit for bit; gloo and NCCL bit for bit
    where they ran the same rank count. (b) Test-G quad SHARD_N^2
    (6,303,750 DOF) written by the port's meshgen (beside (a)) and solved
@@ -299,7 +300,27 @@ before the last line:
    and solve seconds, s per iteration, halo and psum bytes per iteration
    per rank, peak bytes and kernel launches per rank; each rank's padded
    window stencil_spmv (f64, and f32 in the MG-df cycle) against the
-   plain slice-and-einsum version (ERR_GATE), with their times. (c) The
+   plain slice-and-einsum version (ERR_GATE), with their times. (e), on
+   the same ranks, Test-G quad SHARD_N^2 from meshgen.generate (the class
+   tables need a uniform grid; the .xda coordinates are print-rounded)
+   and its own single-device f64 MultigridShellSystem.solve:
+   GridShardedDFShellSystem(prec="mg").solve_refined(rtol=1e-9), its
+   operator from the sharded grid assembly: the centre as in (b), fewer
+   than 40 iterations per inner
+   solve, the class-table true residual below max(1e-9, twice that of the
+   single-device solve), each rank's rows against the single-device
+   assemble_grid (bit for bit off the fold row, 1e-14 of max|A| on it),
+   elem_stiffness<4> launches per rank = its grid strips + the coarser
+   levels' chunks (no fine-level scatter), peak bytes per rank at most
+   GRID_ASM_PEAK, the ranks' stencil_spmv and the controller's class
+   kernels against their plain versions. (d) The 2-D process grid 2x2 on
+   four gloo ranks sharing the card (started beside (a)): Test-G quad
+   64^2 to rtol 1e-10 (centre within 5e-5 of 0.106465, within 1e-8 of
+   max|u| of the single-device f64 MultigridShellSystem.solve), then (e)'s
+   1024^2 plate over GRID2D_ITERS CG iterations: build s, ms per
+   iteration, halo bytes per iteration per rank beside the strip's, peak
+   bytes per rank, each rank's tile stencil_spmv (f64 and f32) against
+   the plain 9-slot loop (ERR_GATE). (c) The
    tower demo's first SHARD_TOWER_STEPS steps with run_structure(devices=2)
    (gloo) against devices=1: the same coupling iterations in every step,
    every step within SHARD_TOWER_GATE (1e-10) of max|u|. The ranks' kernel
@@ -3734,8 +3755,23 @@ def phase12(gates, device="cuda", split=TOWER_SPLIT, n=F32_N):
 # between one and two CPU ranks), is held to 1e-9. Path 2's strip is 16 x
 # ranks elements long: a run on another rank count than the CPU's two has
 # another mesh there, and is compared on the other paths only.
-DRYRUN_U_GATE = {"1": 1e-9, "2": 1e-8, "2t": 1e-9, "3": 1e-9, "4": 1e-6, "7": 1e-9}
-DRYRUN_ITER_GATE = {"1": 1, "2": 1, "2t": 1, "3": 1, "4": 2, "7": 1}
+# Paths 5 and 5b (the 2-D process grid, Jacobi-PCG to rtol 1e-10 and
+# 1e-9) are held as "2t" is, at 1e-9: both stop at a tight rtol, where two
+# summation orders agree to the CG's precision; path 6 (the f64 CG
+# preconditioned by the f32 V-cycle, the design of path 4) as path 4.
+DRYRUN_U_GATE = {"1": 1e-9, "2": 1e-8, "2t": 1e-9, "3": 1e-9, "4": 1e-6, "5": 1e-9, "5b": 1e-9, "6": 1e-6,
+                 "7": 1e-9}
+DRYRUN_ITER_GATE = {"1": 1, "2": 1, "2t": 1, "3": 1, "4": 2, "5": 1, "5b": 1, "6": 2, "7": 1}
+# 13(d): the 2-D process grid, GRID2D_SHAPE ranks over gloo sharing the
+# card: Test-G GRID2D_SMALL^2 converged, and the 1024^2 plate over
+# GRID2D_ITERS CG iterations (Jacobi needs O(n^2) of them to converge)
+GRID2D_SHAPE = (2, 2)
+GRID2D_SMALL = 64
+GRID2D_ITERS = 50
+# 13(e): peak device bytes per rank of GridShardedDFShellSystem(prec="mg")
+# at 1024^2 on two ranks, at most ShardedMGDFShellSystem's as PERF.md
+# first recorded it
+GRID_ASM_PEAK = 4.82e9
 DRYRUN_STRIP = ("2", "2t")
 DRYRUN_CPU_RANKS = 2
 # 13(b): Test-G quad at full width through the solver CLI --devices 2
@@ -3805,12 +3841,12 @@ def collect_dryrun(gates, started, timeout=600):
 
 
 def dryrun_phase(gates, cpu_started, count, device="cuda"):
-    """13(a): parallel/dryrun paths 1-4 and 7 over gloo with two ranks on
+    """13(a): parallel/dryrun paths 1-7 over gloo with two ranks on
     the card, over NCCL with min(count, 4) ranks (and two, where there are
     more than two GPUs) in background processes beside it, over gloo at
     that count too, and the CPU ranks' run: every dry-run assert, card
     against CPU, a second solve bit for bit (every path on NCCL; on gloo
-    paths 1-4, where path 7's 5,817 host-staged iterations would take
+    paths 1-6, where path 7's 5,817 host-staged iterations would take
     another ~20 s), gloo against NCCL at equal rank counts bit for bit.
     The background runs' rank launches join comm.RANK_LAUNCHES."""
     from fem_shell_tpu_torch.parallel import comm as pcomm
@@ -3825,7 +3861,7 @@ def dryrun_phase(gates, cpu_started, count, device="cuda"):
         tag = f"gloox{n}"
         t0 = time.perf_counter()
         try:
-            runs[tag] = dryrun(n, device=device, backend="gloo", repeat=("1", "2", "3", "4"))
+            runs[tag] = dryrun(n, device=device, backend="gloo", repeat=("1", "2", "3", "4", "5", "5b", "6"))
             ok, why = True, ""
         except (AssertionError, RuntimeError) as exc:
             ok, why = False, f": {exc}"
@@ -3918,7 +3954,7 @@ def start_shard_meshgen(n=SHARD_N):
     return gen, work, base
 
 
-def shard_scale_phase(gates, count, n=SHARD_N, device="cuda", meshgen=None):
+def shard_scale_phase(gates, count, n=SHARD_N, device="cuda", meshgen=None, big=None):
     """13(b): Test-G quad n x n through the solver CLI --devices 2 --precond
     mg --backend gloo (and nccl with two GPUs), then on two gloo ranks in
     this process the CLI's system (ShardedMGShellSystem, f64) and
@@ -3928,7 +3964,9 @@ def shard_scale_phase(gates, count, n=SHARD_N, device="cuda", meshgen=None):
     iterate has a floor ~eps || |A| |u| || (~n^4: 8.5e-11 of ||b|| at
     64^2, 1.36e-9 at 128^2), so it is computed compensated
     (stencil_resid_dd) and held to max(1e-9, twice the single-device f64
-    solve's at rtol 1e-10), beside the normwise backward error."""
+    solve's at rtol 1e-10), beside the normwise backward error. With
+    ``big`` (a dict), 13(e) runs on the same ranks and leaves its plate
+    and forces in ``big`` for 13(d)."""
     import os
     import re
     import shutil
@@ -4063,12 +4101,249 @@ def shard_scale_phase(gates, count, n=SHARD_N, device="cuda", meshgen=None):
                   f"s/iter={row['s_per_iter'] * 1e3:.2f} ms w={w:.9f} true_res={tr:.2e} levels={row['levels']} "
                   f"halo_B/iter/rank={halo_b} psum_B/iter/rank={psum_b} peak/rank={peaks} "
                   f"launches/rank build={build_launches} solve={solve_launches} apps=[{smi}]", flush=True)
-            del system, mg, u
-    rec["runs"] = runs
-    del mg1, fine, b
+            del system, mg, u, solve  # the bound solve holds the system, and its ranks their state
+        rec["runs"] = runs
+        del mg1, fine, b
+        if big is not None:  # 13(e) on these ranks; its plate is left for 13(d)
+            t0 = time.perf_counter()
+            rec["grid_sharded"], big["mesh"], big["forces"] = grid_sharded_phase(gates, dm, n=n, device=device)
+            rec["grid_sharded_s"] = time.perf_counter() - t0
     if device == "cuda":
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)  # ~100 MB of mesh files
+    return rec
+
+
+def grid_sharded_phase(gates, dm, n=SHARD_N, device="cuda"):
+    """13(e): GridShardedDFShellSystem(prec="mg") on (b)'s ranks: the
+    operator from the sharded grid assembly (each rank's element rows, the
+    fold row passed on), one solve_refined(rtol=1e-9) with the true
+    residual from the class tables on this device. The plate is Test-G
+    quad n^2 from meshgen.generate, not (b)'s .xda files: the class tables
+    need a uniform grid, and the files' coordinates carry ~5e-6 of print
+    rounding. Its references: the single-device f64
+    MultigridShellSystem.solve, and the single-device class path
+    (df_operator=True, solve_df_refined(rtol=1e-9)), which refines against
+    the same class tables: the refined centre is held to the class path's
+    (the f64-assembled operator's solution lies ~1e-5 from both at this
+    size, its elements' f64 rounding amplified by the conditioning), the
+    residual to the floor the class path reaches. Returns (record, mesh,
+    forces)."""
+    import gc
+    import math
+
+    from fem_shell_tpu_torch import Material, MultigridShellSystem
+    from fem_shell_tpu_torch.ops.class_matvec import class_residual
+    from fem_shell_tpu_torch.ops.class_stencil import class_stencil, class_stencil_plain
+    from fem_shell_tpu_torch.parallel import comm as pcomm
+    from fem_shell_tpu_torch.parallel.grid_asm_shard import GridShardedDFShellSystem, check_rowblock_rank
+    from fem_shell_tpu_torch.parallel.stencil_shard import check_spmv_rank
+
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    mesh, rows, fac = plate("q", n)
+    forces = rows * fac
+    centre = mesh.n_nodes // 2
+    t0 = time.perf_counter()
+    single = MultigridShellSystem(mesh, mat, device=device)
+    u1 = single.solve(forces, rtol=1e-10, maxiter=2000)
+    single_s = time.perf_counter() - t0
+    w1 = float(u1[centre, 2])
+    del single
+    t0 = time.perf_counter()
+    cls = MultigridShellSystem(mesh, mat, dtype=torch.float32, df_operator=True, smoother="chebyshev",
+                               device=device)
+    wc = float(cls.fetch_solution(cls.solve_df_refined(cls.stage_forces(forces), rtol=1e-9,
+                                                       return_device=True))[centre, 2])
+    class_ref = {"seconds": time.perf_counter() - t0, "centre_w": wc, "refine_history": list(cls.refine_history),
+                 "inner_iters": list(cls.refine_inner_iters)}
+    del cls
+    gc.collect()  # the finalizers of (b)'s systems queue their ranks' state to be dropped
+    dm.run(pcomm.peak_memory, [True] * dm.size)
+    baseline = dm.run(pcomm.peak_memory, [True] * dm.size)  # what the ranks hold as (e) starts
+    dm.reset_launches()
+    t0 = time.perf_counter()
+    gs = GridShardedDFShellSystem(mesh, mat, dm, prec="mg")
+    build_s = time.perf_counter() - t0
+    build_launches = [dict(c) for c in dm.launches]
+    mgp = gs.mgp
+    # elem_stiffness<4> per rank: one per grid strip of its rows (the fine
+    # level, no scatter), one per chunk of its elements on each coarser
+    # sharded level, one per chunk of each replicated level
+    expected = [strips + sum(math.ceil(int((lvl.sys.quad_w[r] > 0).sum()) / lvl.sys.chunk)
+                             for lvl in mgp.levels[1:mgp.n_sharded])
+                + sum(math.ceil(len(lvl.mesh.quad) / mgp.chunk) for lvl in mgp.levels[mgp.n_sharded:])
+                for r, strips in enumerate(gs.strips_per_rank())]
+    gates.check([c["elem4"] for c in build_launches] == expected or device != "cuda",
+                f"13(e) GridShardedDFShellSystem build: on the card elem_stiffness<4> launches per rank "
+                f"{[c['elem4'] for c in build_launches]} == grid strips {gs.strips_per_rank()} + the coarser "
+                f"levels' chunks = {expected} (no fine-level scatter)")
+    dm.reset_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    u = gs.solve_refined(forces, rtol=1e-9)
+    solve_s = time.perf_counter() - t0
+    ctrl = read_launches()
+    solve_launches = [dict(c) for c in dm.launches]
+    peaks = dm.run(pcomm.peak_memory, [False] * dm.size)
+    inner, hist = list(gs.refine_inner_iters), list(gs.refine_history)
+    w = float(u[centre, 2])
+    # the class-table residual of the f64-assembled single-device solve,
+    # for the record
+    cdf = gs._class_parts()
+    free = torch.as_tensor((~mesh.dirichlet_mask()).T, dtype=torch.float64, device=device)
+    b = (torch.as_tensor(np.asarray(forces, np.float64).T, device=device) * free).contiguous()
+    x1 = torch.as_tensor(u1, dtype=torch.float64, device=device).T.contiguous()
+    floor = float(class_residual(cdf, x1, b)[1])
+    gate_res = max(1e-9, 2 * class_ref["refine_history"][-1])
+    gates.check(abs(w - KIRCHHOFF) < 1e-3 and abs(w - wc) <= 1e-6 * abs(wc),
+                f"13(e) GridShardedDFShellSystem mg {mesh.n_nodes} nodes on 2 gloo ranks: centre {w:.9f} within "
+                f"1e-3 of {KIRCHHOFF} and {abs(w - wc) / abs(wc):.2e} <= 1e-6 of the single-device class path's "
+                f"{wc:.9f} ({abs(w - w1) / abs(w1):.2e} from the f64-assembled solve's {w1:.9f}, the class path "
+                f"{abs(wc - w1) / abs(w1):.2e})")
+    gates.check(max(inner) < 40 and bool(np.isfinite(hist).all()) and hist[-1] <= gate_res,
+                f"13(e) solve_refined: inner iterations {inner} < 40 each, class-table true residual "
+                f"{['%.2e' % h for h in hist]} <= max(1e-9, 2 x the single-device class path's final "
+                f"{class_ref['refine_history'][-1]:.2e}) (the f64-assembled solve's: {floor:.2e})")
+    gates.check((ctrl["class_f64"] == len(hist) and ctrl["class_f32"] == len(hist)) or device != "cuda",
+                f"13(e) the residual on the card's class kernels: class_stencil<double> {ctrl['class_f64']} and "
+                f"<float> {ctrl['class_f32']} == {len(hist)} passes")
+    if device == "cuda":
+        gates.check(all(p <= GRID_ASM_PEAK for p in peaks),
+                    f"13(e) peak bytes per rank {peaks} <= {GRID_ASM_PEAK:.3g}")
+    rec = {"single_s": single_s, "single_centre_w": w1, "class_path": class_ref, "baseline_bytes_per_rank": baseline,
+           "build_s": build_s, "solve_s": solve_s,
+           "inner_iters": inner, "refine_history": hist,
+           "s_per_cg_iter": solve_s / max(sum(inner), 1), "centre_w": w, "rel_to_single": abs(w - w1) / abs(w1),
+           "rel_to_class_path": abs(w - wc) / abs(wc),
+           "single_class_residual": floor, "levels": {"n_sharded": mgp.n_sharded, "n_levels": mgp.n_levels},
+           "row_starts": gs._row_starts, "strips_per_rank": gs.strips_per_rank(), "peak_bytes_per_rank": peaks,
+           "build_launches_per_rank": build_launches, "solve_launches_per_rank": solve_launches,
+           "controller_launches": {k: ctrl[k] for k in ("class_f32", "class_f64")}}
+    # the checks against the plain versions and the single-device
+    # operator, after the counts are read: their launches are not the
+    # main path's
+    counted = dict(pcomm.RANK_LAUNCHES)
+    coords, free_t = np.asarray(mesh.coords), (~mesh.dirichlet_mask()).T.astype(np.float64)
+    rows = dm.run(check_rowblock_rank, [(gs.sys.key, {"grid": gs.grid, "coords": coords, "free_t": free_t,
+                                                       "mats": mat.matrices(), "thickness": mat.thickness,
+                                                       "lane0": gs._row_starts[r] * gs.grid.nxp,
+                                                       "owned": gs.blocks[r][2]})
+                                        for r in range(dm.size)])
+    for r, chk in enumerate(rows):
+        gates.check(chk["off_fold"] == 0.0 and chk["on_fold"] <= 1e-14 * chk["max_abs"],
+                    f"13(e) rank {r} rows against the single-device assemble_grid: {chk['off_fold']:.1e} off the "
+                    f"fold row (bit for bit), {chk['on_fold'] / chk['max_abs']:.2e} of max|A| on it (<= 1e-14)")
+    rec["rowblock_checks"] = rows
+    rec["spmv_checks"] = []
+    for what, key in (("fine f64", gs.sys.key), ("fine f32", mgp.levels[0].sys.key)):
+        for r, chk in enumerate(dm.run(check_spmv_rank, [(key, 11, 20)] * dm.size)):
+            rel = chk["max_abs_err"] / chk["max_abs_y"]
+            gate = ERR_GATE[torch.float32 if "float32" in chk["dtype"] else torch.float64]
+            gates.check(rel <= gate, f"13(e) {what} rank {r}: stencil_spmv on the padded window {chk['shape']} vs "
+                                     f"matvec_plain {rel:.2e} <= {gate:.0e}")
+            rec["spmv_checks"].append(dict(chk, rank=r, level=what))
+    pcomm.RANK_LAUNCHES.update(counted)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((6, cdf.npad), generator=g, dtype=torch.float64).to(device)
+    rec["class_checks"] = []
+    for what, table, xin in (("class_stencil<double> A64", cdf.a64, x), ("class_stencil<float> E", cdf.e,
+                                                                       x.to(torch.float32))):
+        y, yp = class_stencil(table, xin), class_stencil_plain(table, xin)
+        rel = float((y - yp).abs().max()) / float(yp.abs().max())
+        gate = ERR_GATE[xin.dtype]
+        gates.check(rel <= gate, f"13(e) {what} on the {mesh.n_nodes}-node quad class tables vs its plain version "
+                                 f"{rel:.2e} <= {gate:.0e}")
+        rec["class_checks"].append({"what": what, "rel_err": rel})
+    print(f"  13(e) GridShardedDFShellSystem mg: build_s={build_s:.2f} solve_s={solve_s:.2f} inner={inner} "
+          f"s/CG iter={rec['s_per_cg_iter'] * 1e3:.1f} ms hist={['%.2e' % h for h in hist]} floor={floor:.2e} "
+          f"w={w:.9f} class path {class_ref} peak/rank={peaks} (at the start {baseline}) launches/rank "
+          f"build={build_launches} solve={solve_launches} controller={rec['controller_launches']}", flush=True)
+    del gs, mgp, u, cdf, u1, x1
+    return rec, mesh, forces
+
+
+def grid2d_phase(gates, started, big, device="cuda"):
+    """13(d): the 2-D process grid GRID2D_SHAPE on four gloo ranks sharing
+    the card (``started``: the mesh of ranks, started beside (a)): Test-G
+    quad GRID2D_SMALL^2 to rtol 1e-10 against the single-device f64
+    multigrid solve, then (e)'s 1024^2 plate (``big``) over GRID2D_ITERS CG
+    iterations, with each rank's tile product against the plain 9-slot
+    loop."""
+    import math
+
+    from fem_shell_tpu_torch import Material, MultigridShellSystem
+    from fem_shell_tpu_torch.ops.soa import _ceil_to
+    from fem_shell_tpu_torch.parallel import comm as pcomm
+    from fem_shell_tpu_torch.parallel.grid2d_shard import Sharded2DGridSystem, check_spmv_tile
+
+    mat = Material(nu=0.3, em=1e7, thickness=0.5)
+    t0 = time.perf_counter()
+    dm = started.result()
+    rec = {"shape": list(GRID2D_SHAPE), "mesh_wait_s": time.perf_counter() - t0}
+    with dm:
+        mesh, rows, fac = plate("q", GRID2D_SMALL)
+        forces = rows * fac
+        ref = MultigridShellSystem(mesh, mat, device=device).solve(forces, rtol=1e-10, maxiter=2000).cpu().numpy()
+        t0 = time.perf_counter()
+        system = Sharded2DGridSystem(mesh, mat, dm, dtype=torch.float64)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        u = system.solve(forces, rtol=1e-10, maxiter=20000)
+        solve_s = time.perf_counter() - t0
+        w = float(u[mesh.n_nodes // 2, 2])
+        err = float(np.abs(u - ref).max()) / float(np.abs(ref).max())
+        gates.check(system.last_residual <= 1e-10 and abs(w - GOLDEN["q"]) < 5e-5 and err <= 1e-8,
+                    f"13(d) Sharded2DGridSystem {GRID2D_SHAPE} Test-G {GRID2D_SMALL}^2: {system.last_iters} "
+                    f"iterations, residual {system.last_residual:.2e} <= 1e-10, centre {w:.7f} within 5e-5 of "
+                    f"{GOLDEN['q']}, {err:.2e} <= 1e-8 of max|u| of the single-device multigrid solve")
+        rec["small"] = {"n": GRID2D_SMALL, "build_s": build_s, "solve_s": solve_s, "iters": system.last_iters,
+                        "ms_per_iter": solve_s / max(system.last_iters, 1) * 1e3, "centre_w": w, "rel_err": err,
+                        "residual": system.last_residual}
+        del system
+
+        mesh, forces = big["mesh"], big["forces"]
+        dm.run(pcomm.peak_memory, [True] * dm.size)
+        dm.reset_launches()
+        t0 = time.perf_counter()
+        sys64 = Sharded2DGridSystem(mesh, mat, dm, dtype=torch.float64)
+        build_s = time.perf_counter() - t0
+        build_launches = [dict(c) for c in dm.launches]
+        dm.reset_launches()
+        t0 = time.perf_counter()
+        u = sys64.solve(forces, rtol=1e-12, maxiter=GRID2D_ITERS)
+        solve_s = time.perf_counter() - t0
+        solve_launches = [dict(c) for c in dm.launches]
+        peaks = dm.run(pcomm.peak_memory, [False] * dm.size)
+        chunks = [math.ceil(q / sys64.chunk) for _, q in sys64.tile_elements]
+        counts_ok = ([c["elem4"] for c in build_launches] == chunks
+                     and all(c["spmv_f64"] == GRID2D_ITERS for c in solve_launches))
+        gates.check(sys64.last_iters == GRID2D_ITERS and bool(np.isfinite(u).all())
+                    and (counts_ok or device != "cuda"),
+                    f"13(d) Sharded2DGridSystem {GRID2D_SHAPE} {mesh.n_nodes} nodes: {sys64.last_iters} CG "
+                    f"iterations, finite (residual {sys64.last_residual:.3e}); on the card elem_stiffness<4> per rank "
+                    f"{[c['elem4'] for c in build_launches]} == {chunks} chunks, stencil_spmv<double> "
+                    f"{[c['spmv_f64'] for c in solve_launches]} == {GRID2D_ITERS}")
+        strip = 2 * 6 * 8 * _ceil_to(sys64.grid.nxp + 1, 128)
+        rec["big"] = {"nodes": mesh.n_nodes, "tile": [sys64.ly, sys64.lx], "build_s": build_s, "solve_s": solve_s,
+                      "iters": sys64.last_iters, "ms_per_iter": solve_s / max(sys64.last_iters, 1) * 1e3,
+                      "residual": sys64.last_residual, "halo_bytes_per_iter_per_rank": sys64.halo_bytes_per_iter(),
+                      "strip_halo_bytes_per_iter_per_rank": strip, "peak_bytes_per_rank": peaks,
+                      "build_launches_per_rank": build_launches, "solve_launches_per_rank": solve_launches}
+        counted = dict(pcomm.RANK_LAUNCHES)
+        rec["spmv_checks"] = []
+        sys32 = sys64.rounded(torch.float32)
+        for sys_ in (sys64, sys32):
+            for r, chk in enumerate(dm.run(check_spmv_tile, [(sys_.key, 13, 20)] * dm.size)):
+                rel = chk["max_abs_err"] / chk["max_abs_y"]
+                gate = ERR_GATE[sys_.dtype]
+                gates.check(rel <= gate, f"13(d) rank {r}: tile stencil_spmv on the window {chk['shape']} "
+                                         f"{chk['dtype']} vs the 9-slot loop {rel:.2e} <= {gate:.0e}")
+                rec["spmv_checks"].append(dict(chk, rank=r))
+        pcomm.RANK_LAUNCHES.update(counted)
+        print(f"  13(d) {GRID2D_SHAPE} grid: Test-G {GRID2D_SMALL}^2 {rec['small']}; {mesh.n_nodes} nodes: "
+              f"{ {k: v for k, v in rec['big'].items() if 'launches' not in k} } "
+              f"launches/rank build={build_launches} solve={solve_launches}", flush=True)
+        del sys64, sys32, u
     return rec
 
 
@@ -4100,26 +4375,45 @@ def shard_tower_phase(gates, steps=SHARD_TOWER_STEPS, device="cuda"):
     return rec
 
 
-def phase13(gates, count, cpu_started, device="cuda", n=SHARD_N, steps=SHARD_TOWER_STEPS, parts="abc"):
-    """Phase 13 (the ``parts`` of "abc") with their seconds; the kernel
-    launches of the ranks' main-path runs (comm.RANK_LAUNCHES, summed over
-    ranks) under "rank_launches"."""
+def phase13(gates, count, cpu_started, device="cuda", n=SHARD_N, steps=SHARD_TOWER_STEPS, parts="abdc"):
+    """Phase 13 (the ``parts`` of "abdc", in that order; (e) runs inside (b),
+    (d) needs (e)'s plate) with their seconds; the kernel launches of the
+    ranks' main-path runs (comm.RANK_LAUNCHES, summed over ranks) under
+    "rank_launches", and of this process's in (e) under
+    "controller_launches"."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from fem_shell_tpu_torch.parallel import comm as pcomm
+    from fem_shell_tpu_torch.parallel.grid2d_shard import make_device_mesh2d
 
     pcomm.reset_rank_launches()
     out, laps = {}, {}
+    big = {} if "b" in parts else None
     meshgen = start_shard_meshgen(n) if "b" in parts else None  # beside 13(a)
-    for part, key, fn in (("a", "dryrun", lambda: dryrun_phase(gates, cpu_started, count, device=device)),
-                          ("b", "scale", lambda: shard_scale_phase(gates, count, n=n, device=device,
-                                                                   meshgen=meshgen)),
-                          ("c", "tower", lambda: shard_tower_phase(gates, steps=steps, device=device))):
-        if part in parts:
-            t0 = time.perf_counter()
-            out[key] = fn()
-            laps[part] = time.perf_counter() - t0
+    pool = ThreadPoolExecutor(1)
+    grid_ranks = None
+    if "d" in parts and "b" in parts:  # (d)'s four ranks start beside (a)
+        grid_ranks = pool.submit(make_device_mesh2d, *GRID2D_SHAPE, device=device, backend="gloo")
+    try:
+        for part, key, fn in (("a", "dryrun", lambda: dryrun_phase(gates, cpu_started, count, device=device)),
+                              ("b", "scale", lambda: shard_scale_phase(gates, count, n=n, device=device,
+                                                                       meshgen=meshgen, big=big)),
+                              ("d", "grid2d", lambda: grid2d_phase(gates, grid_ranks, big, device=device)),
+                              ("c", "tower", lambda: shard_tower_phase(gates, steps=steps, device=device))):
+            if part in parts and (part != "d" or grid_ranks is not None):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                laps[part] = time.perf_counter() - t0
+    finally:
+        pool.shutdown()
+    if big is not None:
+        big.clear()
     out["phase13_s"] = laps
     out["rank_launches"] = dict(pcomm.RANK_LAUNCHES)
-    print(f"  phase13_s={sum(laps.values()):.1f} {laps} rank_launches={out['rank_launches']}", flush=True)
+    out["controller_launches"] = out.get("scale", {}).get("grid_sharded", {}).get(
+        "controller_launches", {"class_f32": 0, "class_f64": 0})
+    print(f"  phase13_s={sum(laps.values()):.1f} {laps} rank_launches={out['rank_launches']} "
+          f"controller_launches={out['controller_launches']}", flush=True)
     return out
 
 
@@ -4280,9 +4574,9 @@ def main() -> int:
     p12_launches = ([r["forward_launches"] for r in p12["grad"]["runs"]] + [r["launches"] for r in p12["f32"]]
                     + [p12["f32_tower"]["launches"]])
 
-    header("phase 13: the sharded solvers (parallel/: the dry run's paths 1-4 and 7 over gloo and NCCL on the "
-          f"card and over gloo on the CPU, Test-G {SHARD_N}^2 through the CLI's --devices 2, the tower with "
-          "run_structure(devices=2))", flush=True)
+    header("phase 13: the sharded solvers (parallel/: the dry run's paths 1-7 over gloo and NCCL on the "
+          f"card and over gloo on the CPU, Test-G {SHARD_N}^2 through the CLI's --devices 2 and the sharded grid "
+          f"assembly, the 2-D process grid {GRID2D_SHAPE}, the tower with run_structure(devices=2))", flush=True)
     p13 = phase13(gates, gpus, cpu_dryrun)
     p13_launches = p13["rank_launches"]
 
@@ -4310,7 +4604,8 @@ def main() -> int:
         key = "class_f64" if dtype == torch.float64 else "class_f32"
         entries.append({
             "name": meta["name"], "route": "cuda", "source": CLASS_SOURCE, "replaces": meta["replaces"],
-            "launches": sum(r["launches"][key] for r in class_runs + pair_runs),
+            "launches": sum(r["launches"][key] for r in class_runs + pair_runs)
+                        + p13["controller_launches"][key],  # 13(e)'s refinement residual
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["rel_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],

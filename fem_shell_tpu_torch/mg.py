@@ -103,9 +103,9 @@ from fem_shell_tpu_torch.ops.class_matvec import (
     ClassParts,
     build_class_parts,
     build_pair_ecorr,
-    class_ecorr,
     class_matvec_f32,
     class_matvec_f64,
+    class_residual,
     pair_ecorr,
 )
 from fem_shell_tpu_torch.ops.exact_stencil import (
@@ -1043,13 +1043,10 @@ class MultigridShellSystem:
         is the f64 class operator. Pair path: A64 is the class-consistent
         materialized operator, its term compensated (``stencil_resid_dd``,
         the JAX package's tf residual), E its class table."""
-        x32 = x.to(torch.float32)
         if self._cdf is not None:
-            r = b - class_matvec_f64(self._cdf, x)
-            e = class_ecorr(self._cdf, x32)
-        else:
-            r = stencil_resid_dd(self._fine64, x, b, self.levels[0].offsets)
-            e = pair_ecorr(self._ecorr, x32)
+            return class_residual(self._cdf, x, b)
+        r = stencil_resid_dd(self._fine64, x, b, self.levels[0].offsets)
+        e = pair_ecorr(self._ecorr, x.to(torch.float32))
         r = r - e.to(torch.float64)
         return r, torch.sqrt(torch.sum(r * r)) / torch.sqrt(torch.sum(b * b))
 

@@ -110,45 +110,66 @@ def grid_coords(grid, coords64, device):
     return c.permute(2, 0, 1).to(device).contiguous()
 
 
-def assemble_grid(grid, coords64, free_t, offsets, npad: int, dm, dp, thickness: float,
-                  strip_rows: Optional[int] = None, with_diag: bool = False):
-    """BC-eliminated f64 operator values [36, K, Npad] of a structured grid
-    (unit diagonal on constrained DOFs), built without scatter.
+def grid_strips(ny: int, strip_rows: int, e0: int, e1: int) -> List[Tuple[int, int]]:
+    """The strips of element rows [e0, e1): the whole grid's strips
+    (``strip_bounds``) cut to the range, so a range is assembled in the
+    strips the whole grid would use."""
+    out = []
+    for r0, rows_e in strip_bounds(ny, strip_rows):
+        lo, hi = max(r0, e0), min(r0 + rows_e, e1)
+        if lo < hi:
+            out.append((lo, hi - lo))
+    return out
 
-    ``grid`` has ``nxp``, ``nyp``, ``elem_type`` and ``ul_lr``
-    (mg.GridInfo); ``coords64`` [nyp*nxp, 3] node coordinates (numpy or
-    tensor); ``free_t`` [6, Npad] (1 = free) on the operator's device;
-    ``dm``, ``dp`` [3, 3] f64 on that device. ``strip_rows`` element rows
-    per strip (default max(1, min(ny, 65536 // nx)), as in the JAX
-    package). With ``with_diag`` also returns the [6, Npad] diagonal."""
-    nyp, nxp = grid.nyp, grid.nxp
-    nx, ny = nxp - 1, nyp - 1
+
+def default_strip_rows(grid) -> int:
+    """Element rows per strip: max(1, min(ny, 65536 // nx)), as in the JAX
+    package."""
+    nx, ny = grid.nxp - 1, grid.nyp - 1
+    return max(1, min(ny, 65536 // max(nx, 1)))
+
+
+def assemble_grid_rows(grid, cgrid, free_pad, offsets, e0: int, e1: int, diag_free, dm, dp, thickness: float,
+                       strip_rows: Optional[int] = None, out=None):
+    """The contributions of element rows [e0, e1) of a structured grid to
+    the BC-eliminated f64 operator, in a buffer [36, K, W] whose lane 0 is
+    node row e0's first node (W = ``diag_free``'s width, at least
+    (e1 - e0 + 1) * nxp): a new one, or ``out``, zeros the caller
+    allocated (a view of a padded window). The buffer starts as the unit diagonal where
+    ``diag_free`` [6, W] is 0 (the rows the caller owns and constrains);
+    masked contributions are exact zeros, so it survives every strip.
+
+    ``cgrid`` [3, e1 - e0 + 1, nxp]: the coordinate grid's node rows e0 ..
+    e1; ``free_pad`` [6, e1 - e0 + 3, nxp + 2]: the 1-halo-padded free
+    grid's rows for node rows e0 - 1 .. e1 + 1 (its rows and columns mask
+    each strip's rows and columns); ``dm``, ``dp`` [3, 3] f64, all on the
+    buffer's device. Per strip of ``grid_strips``: one ``elem_stiffness``
+    call per element family, each (la, lb) block added as a shifted window
+    in one fixed order, the masks, then one ``add_`` on a view of the
+    buffer."""
+    nxp = grid.nxp
+    nx = nxp - 1
     offsets = tuple(int(o) for o in offsets)
     k = len(offsets)
-    dev = free_t.device
+    dev = diag_free.device
     f64 = torch.float64
     if strip_rows is None:
-        strip_rows = max(1, min(ny, 65536 // max(nx, 1)))
+        strip_rows = default_strip_rows(grid)
     fams = grid_families(grid.elem_type, grid.ul_lr, nxp, offsets)
     off2d = _offsets_2d(offsets, nxp)
 
-    cgrid = grid_coords(grid, coords64, dev)
-    free = free_t.to(f64)
-    free_pad = torch.nn.functional.pad(free[:, : nyp * nxp].reshape(6, nyp, nxp), (1, 1, 1, 1))
-
-    # the constrained unit diagonal, set once: masked contributions are
-    # exact zeros, so it survives every strip
-    values = torch.zeros((36, k, npad), dtype=f64, device=dev)
+    values = torch.zeros((36, k, diag_free.shape[1]), dtype=f64, device=dev) if out is None else out
     k0 = _self_slot(offsets)
     for a in range(6):
-        values[a * 6 + a, k0] = 1.0 - free[a]
+        values[a * 6 + a, k0] = 1.0 - diag_free[a]
 
-    for r0, rows_e in strip_bounds(ny, strip_rows):
+    for r0, rows_e in grid_strips(grid.nyp - 1, strip_rows, e0, e1):
+        rl = r0 - e0  # the strip's first row in the windows and the buffer
         rows_n = rows_e + 1
         acc = torch.zeros((6, 6, k, rows_n, nxp), dtype=f64, device=dev)  # (a, b, slot, row, col)
         for fam in fams:
             m = len(fam.corners)
-            xyz = family_coords(cgrid, fam.corners, r0, rows_e)
+            xyz = family_coords(cgrid, fam.corners, rl, rows_e)
             ke = elem_stiffness(xyz, dm, dp, thickness).view(m, 6, m, 6, rows_e, nx)
             for la in range(m):
                 dy, dx = fam.corners[la]
@@ -158,14 +179,36 @@ def assemble_grid(grid, coords64, free_t, offsets, npad: int, dm, dp, thickness:
         # Dirichlet masks from windows of the halo-padded free grid: row a
         # of slot s keeps free[a] at the node, column b keeps free[b] at
         # the node the slot points to
-        acc *= free_pad[:, None, None, r0 + 1 : r0 + 1 + rows_n, 1 : 1 + nxp]
-        col = torch.stack([free_pad[:, r0 + 1 + dy : r0 + 1 + dy + rows_n, 1 + dx : 1 + dx + nxp]
+        acc *= free_pad[:, None, None, rl + 1 : rl + 1 + rows_n, 1 : 1 + nxp]
+        col = torch.stack([free_pad[:, rl + 1 + dy : rl + 1 + dy + rows_n, 1 + dx : 1 + dx + nxp]
                            for dy, dx in off2d], dim=1)  # [6 (b), K, rows_n, nxp]
         acc *= col[None]
-        start = r0 * nxp
+        start = rl * nxp
         values[:, :, start : start + rows_n * nxp].add_(acc.view(36, k, rows_n * nxp))
         del acc, col
+    return values
 
+
+def assemble_grid(grid, coords64, free_t, offsets, npad: int, dm, dp, thickness: float,
+                  strip_rows: Optional[int] = None, with_diag: bool = False):
+    """BC-eliminated f64 operator values [36, K, Npad] of a structured grid
+    (unit diagonal on constrained DOFs), built without scatter:
+    ``assemble_grid_rows`` over every element row.
+
+    ``grid`` has ``nxp``, ``nyp``, ``elem_type`` and ``ul_lr``
+    (mg.GridInfo); ``coords64`` [nyp*nxp, 3] node coordinates (numpy or
+    tensor); ``free_t`` [6, Npad] (1 = free) on the operator's device;
+    ``dm``, ``dp`` [3, 3] f64 on that device. ``strip_rows`` element rows
+    per strip (default max(1, min(ny, 65536 // nx)), as in the JAX
+    package). With ``with_diag`` also returns the [6, Npad] diagonal."""
+    nyp, nxp = grid.nyp, grid.nxp
+    if free_t.shape[1] != npad:
+        raise ValueError(f"free_t has {free_t.shape[1]} lanes, not Npad = {npad}")
+    cgrid = grid_coords(grid, coords64, free_t.device)
+    free = free_t.to(torch.float64)
+    free_pad = torch.nn.functional.pad(free[:, : nyp * nxp].reshape(6, nyp, nxp), (1, 1, 1, 1))
+    values = assemble_grid_rows(grid, cgrid, free_pad, offsets, 0, nyp - 1, free, dm, dp, thickness,
+                                strip_rows=strip_rows)
     if with_diag:
         return values, soa_diagonal(values, offsets)
     return values

@@ -186,6 +186,18 @@ def class_ecorr(cp: ClassParts, x32):
     return class_stencil(cp.e, x32)
 
 
+def class_residual(cp: ClassParts, x, b):
+    """The true residual r = b - A_df x - E x of the class operator, E on x
+    rounded to f32 (as the JAX package evaluates it), and ||r|| / ||b||;
+    x, b [6, npad] f64. The refinement residual of the class path
+    (``MultigridShellSystem``) and of the sharded grid system
+    (``parallel/grid_asm_shard``)."""
+    r = b - class_matvec_f64(cp, x)
+    e = class_ecorr(cp, x.to(torch.float32))
+    r = r - e.to(torch.float64)
+    return r, torch.sqrt(torch.sum(r * r)) / torch.sqrt(torch.sum(b * b))
+
+
 @dataclasses.dataclass
 class PairECorr:
     """The pair path's refinement correction E = A_true - A64 as a class

@@ -47,7 +47,7 @@ import queue
 import socket
 import traceback
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -137,6 +137,8 @@ class Comm:
         order, gloo by tag), and all are posted before any is waited on."""
         import torch.distributed as dist
 
+        if not sends and not recvs:
+            return []
         out = [torch.empty(shape, dtype=dt, device="cpu" if self._staged else self.device)
                for _, _, shape, dt in recvs]
         wired = self._wire([t for _, _, t in sends])
@@ -226,20 +228,49 @@ class Comm:
             acc = acc + parts[j]
         return acc.to(x.dtype)
 
+    def send_next(self, to_next, shape, dtype):
+        """The open chain's one-way shift: rank r sends ``to_next`` to r+1
+        (the last rank sends nothing; pass None there) and returns what
+        r-1 sent, of ``shape`` and ``dtype`` (None on rank 0)."""
+        r, last = self.rank, self.size - 1
+        sends = [(r + 1, 5, to_next)] if r < last else []
+        recvs = [(r - 1, 5, tuple(shape), dtype)] if r > 0 else []
+        got = self._exchange(sends, recvs)
+        return got[0] if got else None
+
+    def ppermute_shift(self, to_plus, to_minus, grid=None, axis: int = 1):
+        """The two shifts of a halo exchange along one axis of a process
+        grid, in one exchange. ``grid`` = (py, px), rank = iy * px + ix
+        (default (1, size): the ring); ``axis`` 1 shifts within a row (x), 0
+        within a column (y), wrapping around. Rank r sends ``to_plus`` to
+        its +1 neighbour and ``to_minus`` to its -1 neighbour and returns
+        ``(from_minus, from_plus)``, what the -1 neighbour sent toward +1 and
+        the +1 neighbour toward -1. On an axis of size 1 a rank gets its
+        own back, as ``jax.lax.ppermute`` on one device does; on an axis of
+        size 2 both messages go to one peer, told apart by tag (gloo) and
+        by order (NCCL)."""
+        py, px = grid if grid is not None else (1, self.size)
+        if py * px != self.size or axis not in (0, 1):
+            raise ValueError(f"grid {py}x{px}, axis {axis} on {self.size} ranks")
+        iy, ix = divmod(self.rank, px)
+        if axis == 1:
+            n, plus, minus = px, iy * px + (ix + 1) % px, iy * px + (ix - 1) % px
+        else:
+            n, plus, minus = py, ((iy + 1) % py) * px + ix, ((iy - 1) % py) * px + ix
+        if n == 1:
+            return to_plus.clone(), to_minus.clone()
+        from_minus, from_plus = self._exchange(
+            [(plus, 0, to_plus), (minus, 1, to_minus)],
+            [(minus, 0, tuple(to_plus.shape), to_plus.dtype),
+             (plus, 1, tuple(to_minus.shape), to_minus.dtype)])
+        return from_minus, from_plus
+
     def ppermute_ring(self, to_right, to_left):
         """The two ring shifts of a halo exchange in one exchange: rank r
         sends ``to_right`` to r+1 and ``to_left`` to r-1 (both wrapping
-        around) and returns ``(from_left, from_right)``, what r-1 sent
-        right and r+1 sent left. One rank keeps its own, as the wrap of
-        ``jax.lax.ppermute`` on one device does."""
-        if self.size == 1:
-            return to_right.clone(), to_left.clone()
-        right, left = (self.rank + 1) % self.size, (self.rank - 1) % self.size
-        from_left, from_right = self._exchange(
-            [(right, 0, to_right), (left, 1, to_left)],
-            [(left, 0, tuple(to_right.shape), to_right.dtype),
-             (right, 1, tuple(to_left.shape), to_left.dtype)])
-        return from_left, from_right
+        around) and returns ``(from_left, from_right)``: the 1-D case of
+        ``ppermute_shift``."""
+        return self.ppermute_shift(to_right, to_left)
 
 
 def peak_memory(comm, reset: bool):
@@ -332,6 +363,9 @@ class DeviceMesh:
         self.size = n
         self.device = dev
         self.backend = backend
+        # (py, px) where a 2-D process grid is laid over the ranks
+        # (grid2d_shard.make_device_mesh2d), else None
+        self.grid2d: Optional[Tuple[int, int]] = None
         self.launches: List[Dict[str, int]] = [{k: 0 for k in LAUNCH_KEYS} for _ in range(n)]
         self._next_key = 0
         self._drops: List[int] = []

@@ -64,9 +64,9 @@ class ShardedDFShellSystem(ShardedStencilSystem):
     f64 (the JAX package's df strips)."""
 
     def __init__(self, mesh, material, device_mesh: DeviceMesh, chunk: int = 8192, l_force=None,
-                 dirichlet_mask=None):
+                 dirichlet_mask=None, assemble: bool = True):
         super().__init__(mesh, material, device_mesh, dtype=torch.float64, chunk=chunk, l_force=l_force,
-                         dirichlet_mask=dirichlet_mask)
+                         dirichlet_mask=dirichlet_mask, assemble=assemble)
 
 
 class ShardedMGDFShellSystem(ShardedSystemBase):

@@ -1,6 +1,6 @@
-"""The multi-rank dry run: the JAX package's ``_dryrun_body`` paths 1, 2,
-3, 4 and 7 (``__graft_entry__.py``) on the port, on the same meshes and
-with the same asserts.
+"""The multi-rank dry run: the JAX package's ``_dryrun_body`` paths 1-7
+(``__graft_entry__.py``) on the port, on the same meshes and with the
+same asserts.
 
 1. ``ShardedShellSystem`` (all-gather SPMD) on the 8x8 Test-D/G plate:
    converged, centre deflection 0.106405 +- 5e-4.
@@ -13,14 +13,17 @@ with the same asserts.
    1e-9 in fewer than 40 iterations, centre 0.106465 +- 5e-5.
 4. ``ShardedMGDFShellSystem`` (f64 CG, f32 V-cycle) on the same plate:
    the same gates.
+5. ``Sharded2DGridSystem`` (f64) on a py x px process grid (py = 2 where n
+   is even and at least 4, else 1) on the 21x21 quad plate, to rtol
+   1e-10: within 1e-8 of the single-device f64 ``ShellSystem`` solve;
+   "5b" ``Sharded2DGridDFSystem`` to rtol 1e-9: within 1e-4.
+6. ``GridShardedDFShellSystem(prec="mg")`` (the operator from the sharded
+   grid assembly) on the 16x128 quad strip, to rtol 1e-9: within 1e-4 of
+   ``ShellSystem`` at rtol 1e-12.
 7. ``HaloShardedShellSystem`` on the I-beam refined three times (5120
    Tri-3): within 1e-6 of the single-device ``LargeShellSystem`` Jacobi
    solve, iterations within max(5, 5 %) of its count, and the exchanged
    values per iteration below N*6/3.
-
-Paths 5, 5b (the 2-D process grid, ``grid2d_shard``) and 6 (the sharded
-grid-df assembly, ``grid_asm_shard``) are not ported yet (ROADMAP.md
-Queue 1 item 9); the run says so.
 
     python -m fem_shell_tpu_torch.parallel.dryrun 2 --device cpu [--save out.npz] [--repeat 1,2]
 
@@ -38,13 +41,9 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-WAITING = {"5": "2-D process grid (grid2d_shard)", "5b": "2-D process grid, df (grid2d_shard)",
-           "6": "sharded grid-df assembly (grid_asm_shard)"}
-
-
 def dryrun(n: int, device=None, backend: Optional[str] = None, repeat: Iterable[str] = (),
            verbose: bool = True) -> dict:
-    """Run paths 1-4 and 7 on ``n`` ranks of ``device`` over ``backend``;
+    """Run paths 1-7 on ``n`` ranks of ``device`` over ``backend``;
     raises AssertionError on a failed gate. Returns {path: {"u", "iters",
     "residual", "seconds"[, "repeat_equal"]}, "launches": per-rank kernel
     launches}; the paths named in ``repeat`` solve twice, and
@@ -55,6 +54,12 @@ def dryrun(n: int, device=None, backend: Optional[str] = None, repeat: Iterable[
     from fem_shell_tpu_torch.mesh import ShellMesh, refine_uniform
     from fem_shell_tpu_torch.meshgen import MeshGenParams, generate
     from fem_shell_tpu_torch.parallel.df_shard import ShardedMGDFShellSystem
+    from fem_shell_tpu_torch.parallel.grid2d_shard import (
+        Sharded2DGridDFSystem,
+        Sharded2DGridSystem,
+        make_device_mesh2d,
+    )
+    from fem_shell_tpu_torch.parallel.grid_asm_shard import GridShardedDFShellSystem
     from fem_shell_tpu_torch.parallel.mg_shard import ShardedMGShellSystem
     from fem_shell_tpu_torch.parallel.sharded import ShardedShellSystem, make_device_mesh
     from fem_shell_tpu_torch.parallel.stencil_shard import ShardedStencilSystem
@@ -138,8 +143,43 @@ def dryrun(n: int, device=None, backend: Optional[str] = None, repeat: Iterable[
         mark(f"path 4/7 sharded MG-df OK ({mgdf.last_iters} iters)")
         del mgs, mgdf
 
-        for path, what in WAITING.items():
-            mark(f"path {path}/7 {what}: not ported yet (ROADMAP.md Queue 1 item 9)")
+        # path 5: the 2-D process grid on a quad plate whose node grid need
+        # not divide it (padded tiles), laid over these ranks
+        py = 2 if n % 2 == 0 and n >= 4 else 1
+        px = n // py
+        grid_mesh = make_device_mesh2d(py, px, ranks=dmesh)
+        mesh5, rows5, fac5 = generate(MeshGenParams("q", 21, 21, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, True, "z"))
+        g2d = Sharded2DGridSystem(mesh5, mat, grid_mesh, dtype=torch.float64, chunk=256)
+        u5 = run("5", g2d, g2d.solve, rows5 * fac5, rtol=1e-10, maxiter=20000)
+        u5_ref = ShellSystem(mesh5, mat, device=dmesh.device).solve(rows5 * fac5, rtol=1e-10).cpu().numpy()
+        g2d_err = float(np.max(np.abs(u5 - u5_ref))) / float(np.max(np.abs(u5_ref)))
+        assert g2d.last_residual < 1e-9 and g2d_err < 1e-8, (
+            f"2D-grid path off reference: rel {g2d_err:.3e}, res {g2d.last_residual:.2e}")
+        out["5"].update(ref_err=g2d_err, grid=[py, px], tile=[g2d.ly, g2d.lx])
+        mark(f"path 5/7 2D-grid OK ({g2d.last_iters} iters, {py}x{px} grid)")
+        # 5b: the production (f64) system on the same tiles
+        g2df = Sharded2DGridDFSystem(mesh5, mat, grid_mesh, chunk=256)
+        u5d = run("5b", g2df, g2df.solve, rows5 * fac5, rtol=1e-9, maxiter=20000)
+        g2df_err = float(np.max(np.abs(u5d - u5_ref))) / float(np.max(np.abs(u5_ref)))
+        assert g2df.last_residual < 1e-9 and g2df_err < 1e-4, (
+            f"2D-grid df path off reference: rel {g2df_err:.3e}, res {g2df.last_residual:.2e}")
+        out["5b"].update(ref_err=g2df_err)
+        mark(f"path 5b/7 2D-grid df OK ({g2df.last_iters} iters)")
+        del g2d, g2df
+
+        # path 6: the operator from the sharded grid assembly, the f64 CG
+        # preconditioned by the sharded f32 V-cycle, on a strip tall enough
+        # (129 node rows) for every rank
+        mesh6, rows6, fac6 = generate(MeshGenParams("q", 16, 128, 0, 0, 2.5, 20, (0, 0, 0, 0), 300.0, 2, True, "z"))
+        gdf = GridShardedDFShellSystem(mesh6, mat, dmesh, prec="mg")
+        u6 = run("6", gdf, gdf.solve, rows6 * fac6, rtol=1e-9, maxiter=20000)
+        u6_ref = ShellSystem(mesh6, mat, device=dmesh.device).solve(rows6 * fac6, rtol=1e-12).cpu().numpy()
+        g6_err = float(np.max(np.abs(u6 - u6_ref))) / float(np.max(np.abs(u6_ref)))
+        assert gdf.last_residual < 1e-9 and g6_err < 1e-4, (
+            f"grid-sharded-df path off reference: rel {g6_err:.3e}, res {gdf.last_residual:.2e}")
+        out["6"].update(ref_err=g6_err, n_sharded=gdf.mgp.n_sharded, n_levels=gdf.mgp.n_levels)
+        mark(f"path 6/7 grid-sharded-df OK ({gdf.last_iters} iters)")
+        del gdf
 
         # path 7: unstructured halo decomposition on the refined I-beam
         ne = E.TRIS.shape[0]

@@ -284,6 +284,7 @@ class ShardedMGShellSystem(ShardedSystemBase):
         self.dtype = dtype
         self.nu_smooth = nu_smooth
         self.omega = omega
+        self.chunk = chunk
         s = self.n_shards
 
         if n_levels is None:

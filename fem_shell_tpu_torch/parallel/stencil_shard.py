@@ -115,15 +115,25 @@ def assemble_vals_spmd(comm, p):
 
 def _set_operator(st, vals, free_l, dtype):
     """Round the masked f64 operator [6, 6, K, L] once to ``dtype`` into
-    ``st``: the values zero-padded to [36, K, Wp+L+Wp], the Jacobi inverse
+    ``st``: the values zero-padded to [36, K, Wp+L+Wp] (rounded as they are
+    copied in, with no rounded copy beside them), the Jacobi inverse
     diagonal and the free mask [6, L]."""
     k, l, wp = len(st.offsets), st.l, st.wp
-    vals = vals.to(dtype)
-    diag = torch.diagonal(vals[:, :, st.k0, :]).T  # [6, L]
+    padded = torch.zeros((36, k, l + 2 * wp), dtype=dtype, device=vals.device)
+    padded[:, :, wp:wp + l].copy_(vals.reshape(36, k, l))
+    return _set_padded(st, padded, free_l)
+
+
+def _set_padded(st, padded, free_l):
+    """Take the operator already zero-padded to [36, K, Wp+L+Wp] (in its
+    dtype) into ``st``, with the Jacobi inverse diagonal of its core and the
+    free mask [6, L] in that dtype."""
+    k, l, wp = len(st.offsets), st.l, st.wp
+    core = padded[:, :, wp:wp + l].reshape(6, 6, k, l)
+    diag = torch.diagonal(core[:, :, st.k0, :]).T  # [6, L]
     st.inv_diag = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)).contiguous()
-    st.vals = torch.zeros((36, k, l + 2 * wp), dtype=dtype, device=vals.device)
-    st.vals[:, :, wp:wp + l] = vals.reshape(36, k, l)
-    st.free = free_l.to(dtype)
+    st.vals = padded
+    st.free = free_l.to(padded.dtype)
     return st
 
 
@@ -147,6 +157,25 @@ def matvec_plain(st, x_ext):
     return y
 
 
+def compare_products(comm, kernel, plain, reps: int, meta: dict) -> dict:
+    """A per-rank product against its plain version: their largest
+    absolute difference, the largest |y|, and on the card their
+    milliseconds per call over ``reps`` calls (CUDA events), with ``meta``."""
+    y, y_plain = kernel(), plain()
+    out = dict(meta, max_abs_err=float((y - y_plain).abs().max()), max_abs_y=float(y_plain.abs().max()))
+    if comm.device.type == "cuda":
+        for name, fn in (("ms", kernel), ("plain_ms", plain)):
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize(comm.device)
+            out[name] = start.elapsed_time(end) / reps
+    return out
+
+
 def check_spmv_rank(comm, arg):
     """A rank command for the card's check: on the state ``key``, the
     per-rank product (``stencil_spmv`` on the padded window, its core) and
@@ -158,24 +187,9 @@ def check_spmv_rank(comm, arg):
     g = torch.Generator().manual_seed(seed + comm.rank)
     x_ext = torch.randn((6, st.l + 2 * st.wp), generator=g, dtype=torch.float64)
     x_ext = x_ext.to(device=comm.device, dtype=st.vals.dtype)
-
-    def kernel():
-        return stencil_spmv(st.vals, x_ext, st.offsets)[:, st.wp:st.wp + st.l]
-
-    y, y_plain = kernel(), matvec_plain(st, x_ext)
-    out = {"max_abs_err": float((y - y_plain).abs().max()), "max_abs_y": float(y_plain.abs().max()),
-           "shape": [36, len(st.offsets), st.l + 2 * st.wp], "dtype": str(st.vals.dtype)}
-    if comm.device.type == "cuda":
-        for name, fn in (("ms", kernel), ("plain_ms", lambda: matvec_plain(st, x_ext))):
-            fn()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize(comm.device)
-            out[name] = start.elapsed_time(end) / reps
-    return out
+    return compare_products(comm, lambda: stencil_spmv(st.vals, x_ext, st.offsets)[:, st.wp:st.wp + st.l],
+                            lambda: matvec_plain(st, x_ext), reps,
+                            {"shape": [36, len(st.offsets), st.l + 2 * st.wp], "dtype": str(st.vals.dtype)})
 
 
 def _build_rank(comm, arg):
@@ -211,7 +225,9 @@ class ShardedStencilSystem(ShardedSystemBase):
     ``l_force`` overrides the 128-aligned strip length (the sharded
     multigrid partitions by grid rows, so its strips are multiples of the
     grid width); ``dirichlet_mask`` overrides the mesh's BC mask
-    (subsampled masks on multigrid coarse levels)."""
+    (subsampled masks on multigrid coarse levels). With ``assemble=False``
+    the system assembles nothing: its caller puts each rank's operator
+    under ``key`` (``_set_operator``), as ``grid_asm_shard`` does."""
 
     def __init__(
         self,
@@ -222,6 +238,7 @@ class ShardedStencilSystem(ShardedSystemBase):
         chunk: int = 8192,
         l_force: Optional[int] = None,
         dirichlet_mask=None,
+        assemble: bool = True,
     ):
         if dtype not in (torch.float64, torch.float32):
             raise ValueError(f"{type(self).__name__}(dtype={dtype}): torch.float64 or torch.float32")
@@ -250,6 +267,13 @@ class ShardedStencilSystem(ShardedSystemBase):
         if self.l < 2 * self.w_pad:
             raise ValueError(f"strips too narrow for halo exchange: L={self.l} < 2*W={2 * self.w_pad}")
         self.chunk = int(chunk)
+        free = np.ones((self.n_tot, 6))
+        mask = mesh.dirichlet_mask() if dirichlet_mask is None else np.asarray(dirichlet_mask, bool)
+        free[:n] = ~mask
+        free[n:] = 0.0
+        self.free = free.T.reshape(6, s, self.l).transpose(1, 0, 2)  # [S, 6, L]
+        if not assemble:
+            return
 
         # per-rank element partition by the strip of the first node; the
         # tables pad each rank to the largest count as the JAX package's do
@@ -274,11 +298,6 @@ class ShardedStencilSystem(ShardedSystemBase):
 
         self.tri_conn, self.tri_w = part_elems(mesh.tri, 3)
         self.quad_conn, self.quad_w = part_elems(mesh.quad, 4)
-        free = np.ones((self.n_tot, 6))
-        mask = mesh.dirichlet_mask() if dirichlet_mask is None else np.asarray(dirichlet_mask, bool)
-        free[:n] = ~mask
-        free[n:] = 0.0
-        self.free = free.T.reshape(6, s, self.l).transpose(1, 0, 2)  # [S, 6, L]
         self.device_mesh.run(_build_rank, [(self.key, self._payload(si)) for si in range(s)])
 
     def rounded(self, dtype) -> "ShardedStencilSystem":

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 13 alone: the sharded solvers. Builds the kernels,
 starts the CPU ranks' dry run in the background, then runs phases
-13(a)-(c) (or the ``--parts`` named) through chip_smoke.py's own
-functions, with their gates. Prints each part's seconds and writes the
-records to chiprun_out/parallel_phase.json.
+13(a)-(e) (or the ``--parts`` named; (e) runs inside (b), and (d) needs
+(e)'s plate) through chip_smoke.py's own functions, with their gates.
+Prints each part's seconds and writes the records to
+chiprun_out/parallel_phase.json.
 
-    python3 tools/torch_parallel_phase.py [--device cuda] [--n 1024] [--steps 10] [--parts abc]
+    python3 tools/torch_parallel_phase.py [--device cuda] [--n 1024] [--steps 10] [--parts abdc]
 
-One GPU, about two minutes; ``--device cpu --n 32 --steps 3`` rehearses it
-on the host (gloo ranks only, about three minutes). ``--parts a`` on a
+One GPU, about two and a half minutes; ``--device cpu --n 32 --steps 3``
+rehearses it on the host (gloo ranks only, about four minutes). ``--parts a`` on a
 box with two to four GPUs runs the dry run over NCCL with one GPU per
 rank (two ranks and min(count, 4)) and over gloo at the same counts, and
 holds them bit for bit.
@@ -31,7 +32,7 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=cs.SHARD_N)
     ap.add_argument("--steps", type=int, default=cs.SHARD_TOWER_STEPS)
-    ap.add_argument("--parts", default="abc", help="which of 13(a), (b), (c) to run")
+    ap.add_argument("--parts", default="abdc", help="which of 13(a), (b) with (e), (d), (c) to run")
     args = ap.parse_args()
     count = 0
     if args.device == "cuda":
