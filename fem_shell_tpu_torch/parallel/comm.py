@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import multiprocessing
 import os
 import queue
 import socket
@@ -63,6 +64,8 @@ RANK_LAUNCHES: Dict[str, int] = {k: 0 for k in LAUNCH_KEYS}
 COLLECTIVE_TIMEOUT_S = 600
 # a rank that has not joined the rendezvous by then fails the mesh
 START_TIMEOUT_S = 600
+# how often an idle rank checks that its controller is still there
+CONTROLLER_POLL_S = 0.5
 
 _OPEN: "weakref.WeakSet[DeviceMesh]" = weakref.WeakSet()
 
@@ -286,7 +289,10 @@ def peak_memory(comm, reset: bool):
 
 def rank_main(rank: int, size: int, port: int, device_type: str, backend: str, cmds, results) -> None:
     """A rank process: join the process group, then run the controller's
-    commands until it sends None. Every failure goes back as a traceback."""
+    commands until it sends None or is gone (it ended without closing the
+    mesh: killed, or left through ``os._exit``). Every failure goes back as
+    a traceback."""
+    controller = multiprocessing.parent_process()
     try:
         import torch.distributed as dist
 
@@ -309,7 +315,12 @@ def rank_main(rank: int, size: int, port: int, device_type: str, backend: str, c
         return
     seen = _launch_counts()
     while True:
-        msg = cmds.get()
+        try:
+            msg = cmds.get(timeout=CONTROLLER_POLL_S)
+        except queue.Empty:
+            if controller.is_alive():
+                continue
+            break
         if msg is None:
             break
         fn, arg, drops = msg
@@ -376,7 +387,6 @@ class DeviceMesh:
             from fem_shell_tpu_torch.ops import _build
 
             _build.build_all()
-        import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         port = _free_port()

@@ -5,8 +5,8 @@ against the JAX package's ``assemble_grid_df`` and against the port's own
 
 The JAX grid pipeline runs eagerly here (``eager=True``; its jitted form
 FMA-contracts the two-float32 arithmetic on the CPU) and takes ~15 s per
-call, so it runs for two cases only, once each in a module fixture: quad
-with 3-row strips on a warped shell, and tri with the other diagonal
+call, so it runs for two cases only, each in its own test: quad with
+3-row strips on a warped shell, and tri with the other diagonal
 (``ul_lr=False``) and 2-row strips, warped. Its (hi, lo) pair becomes the
 port's f64 operator through ``convert.df_pair_from_jax``. Tolerance
 1e-13 of max|A|, the JAX package's own grid-against-f64 contract
@@ -43,16 +43,6 @@ CASES = [  # (elem type, ul_lr, strip_rows, warp), as tests/test_assemble_grid.p
 JAX_CASES = [CASES[1], CASES[3]]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _jmesh(et, n, ul, warp):
     jmesh, _, _ = jgenerate(JParams(et, n, n, 0, 0, 10, 10, (0, 1, 0, 1), 300.0, 2, ul, "z"))
     if warp:  # curved structured shell: same connectivity, z = bump(x, y)
@@ -69,28 +59,24 @@ def _port_grid(sys_, strip_rows, with_diag=False):
                              with_diag=with_diag)
 
 
-@pytest.fixture(scope="module")
-def jax_ops():
+def _jax_op(case):
     """The JAX grid pipeline's operator (f64 from its df pair) and the
-    port's, per JAX case."""
-    out = {}
-    for case in JAX_CASES:
-        et, ul, strip_rows, warp = case
-        jmesh = _jmesh(et, 8, ul, warp)
-        js = JLarge(jmesh, JMAT, dtype=jnp.float64, chunk=64)
-        pair = assemble_grid_df(jdetect(jmesh), np.asarray(jmesh.coords, np.float64),
-                                js.free_t.astype(jnp.float32), js.offsets, js.pattern.n_pad,
-                                js._grid_kernel_fn(3 if et == "t" else 4),
-                                strip_rows=strip_rows, eager=True)
-        ts = LargeShellSystem(mesh_from_jax(jmesh), TMAT, device="cpu")
-        assert tuple(ts.offsets) == tuple(int(o) for o in js.offsets)
-        out[case] = (df_pair_from_jax(pair, device="cpu"), _port_grid(ts, strip_rows))
-    return out
+    port's, for one JAX case."""
+    et, ul, strip_rows, warp = case
+    jmesh = _jmesh(et, 8, ul, warp)
+    js = JLarge(jmesh, JMAT, dtype=jnp.float64, chunk=64)
+    pair = assemble_grid_df(jdetect(jmesh), np.asarray(jmesh.coords, np.float64),
+                            js.free_t.astype(jnp.float32), js.offsets, js.pattern.n_pad,
+                            js._grid_kernel_fn(3 if et == "t" else 4),
+                            strip_rows=strip_rows, eager=True)
+    ts = LargeShellSystem(mesh_from_jax(jmesh), TMAT, device="cpu")
+    assert tuple(ts.offsets) == tuple(int(o) for o in js.offsets)
+    return df_pair_from_jax(pair, device="cpu"), _port_grid(ts, strip_rows)
 
 
 @pytest.mark.parametrize("case", JAX_CASES, ids=["q-strip3-warp", "t-lr-strip2-warp"])
-def test_grid_matches_jax_grid_df(jax_ops, case):
-    ref, got = jax_ops[case]
+def test_grid_matches_jax_grid_df(case):
+    ref, got = _jax_op(case)
     assert got.shape == ref.shape and got.dtype == torch.float64
     assert float((got - ref).abs().max()) <= GATE * float(ref.abs().max())
 

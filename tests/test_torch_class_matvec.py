@@ -22,6 +22,8 @@ stands apart from the longdouble table build. Tolerances:
 The JAX reference calls (eager df, interpret-mode Pallas) cost seconds
 each here, so each runs once, on a 12^2 plate.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,32 +54,19 @@ JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 CASES = [("t", 12), ("q", 12), ("t", 17)]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores, and oversubscribed torch threads slow the solves
-    here by over an order of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
-def built():
+@functools.cache
+def _build(case):
     """(jmesh, ExactStencil, JAX ClassParts, JAX diag, port ClassParts,
-    port diag, npad) per case, built once."""
-    out = {}
-    for et, n in CASES:
-        p = JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
-        jmesh, _, _ = jgenerate(p)
-        jsys = JLarge(jmesh, JMAT)
-        npad = jsys.pattern.n_pad
-        st = build_exact_stencil(jmesh, JMAT, jsys.offsets)
-        cpj, dj = jcm.build_class_parts(st, npad)
-        cpt, dt = tcm.build_class_parts(exact_stencil_from_jax(st), npad, device="cpu")
-        out[(et, n)] = (jmesh, st, cpj, np.asarray(dj), cpt, dt, npad)
-    return out
+    port diag, npad) for one (element type, n) case."""
+    et, n = case
+    p = JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
+    jmesh, _, _ = jgenerate(p)
+    jsys = JLarge(jmesh, JMAT)
+    npad = jsys.pattern.n_pad
+    st = build_exact_stencil(jmesh, JMAT, jsys.offsets)
+    cpj, dj = jcm.build_class_parts(st, npad)
+    cpt, dt = tcm.build_class_parts(exact_stencil_from_jax(st), npad, device="cpu")
+    return jmesh, st, cpj, np.asarray(dj), cpt, dt, npad
 
 
 def _x(st, npad, seed):
@@ -93,8 +82,8 @@ def _x(st, npad, seed):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_class_parts_match_jax(built, case):
-    _, _, cpj, dj, cpt, dt, npad = built[case]
+def test_class_parts_match_jax(case):
+    _, _, cpj, dj, cpt, dt, npad = _build(case)
     np.testing.assert_array_equal(dt.numpy(), dj)
     assert dt.dtype == torch.float32 and tuple(dt.shape) == (6, npad)
     # the JAX package's nzmask: (a, b, s) with a nonzero interior scalar
@@ -129,8 +118,8 @@ def test_class_parts_match_jax(built, case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_f64_matvec_and_ecorr_vs_ld_oracle(built, case):
-    _, st, _, _, cpt, _, npad = built[case]
+def test_f64_matvec_and_ecorr_vs_ld_oracle(case):
+    _, st, _, _, cpt, _, npad = _build(case)
     n = st.nyp * st.nxp
     x64, _ = _x(st, npad, seed=1)
     xt = torch.from_numpy(x64)
@@ -146,11 +135,11 @@ def test_f64_matvec_and_ecorr_vs_ld_oracle(built, case):
 
 @pytest.mark.parametrize("kw", [{"use_pallas": False}, {"use_pallas": True, "interpret": True}],
                          ids=["eager", "interpret"])
-def test_f64_matvec_vs_jax_df(built, kw):
+def test_f64_matvec_vs_jax_df(kw):
     """A_df = fl64(t0 + t1) in f64 against the JAX df class matvec, eager
     XLA and the Pallas interior kernel in interpret mode (tri 12^2: each
     interpret-mode call costs seconds here)."""
-    _, st, cpj, _, cpt, _, npad = built[("t", 12)]
+    _, st, cpj, _, cpt, _, npad = _build(("t", 12))
     _, xdf = _x(st, npad, seed=2)
     got = tcm.class_matvec_f64(cpt, torch.from_numpy(np.asarray(xdf.hi, np.float64)
                                                       + np.asarray(xdf.lo, np.float64))).numpy()
@@ -163,13 +152,13 @@ def test_f64_matvec_vs_jax_df(built, kw):
     np.testing.assert_array_equal(tcm.class_matvec_f64(carried, x).numpy(), got)
 
 
-def test_f32_matvec_and_fused_smoother_vs_jax(built):
+def test_f32_matvec_and_fused_smoother_vs_jax():
     """The f32 operator against the JAX package's eager class_matvec_f32,
     and the fused w * (b - A x) form against one damped-Jacobi sweep of
     its padded-layout smoother class_smooth_f32_pad (which runs the
     class_matvec_f32_pad kernel) in interpret mode, on the quad 12^2
     plate."""
-    jmesh, st, cpj, dj, cpt, _, npad = built[("q", 12)]
+    jmesh, st, cpj, dj, cpt, _, npad = _build(("q", 12))
     n = st.nyp * st.nxp
     x64, _ = _x(st, npad, seed=3)
     xf = x64.astype(np.float32)
@@ -204,13 +193,13 @@ def test_f32_matvec_and_fused_smoother_vs_jax(built):
 
 
 @pytest.mark.parametrize("case", [("t", 12), ("q", 12)])
-def test_fused_form_and_ecorr_vs_jax(built, case):
+def test_fused_form_and_ecorr_vs_jax(case):
     """w * (b - A x) equals its unfused form on the plain path, the padding
     of the fused form is w * b, and the E term (interior t2 plus the band
     e-deltas: E alone is not the t2 table, only A_df + E is the true
     operator) matches the JAX package's eager class_ecorr_f32 to f32
     accumulation noise, 1e-6 of max."""
-    _, st, cpj, _, cpt, _, npad = built[case]
+    _, st, cpj, _, cpt, _, npad = _build(case)
     n = st.nyp * st.nxp
     rng = np.random.default_rng(4)
     x = torch.from_numpy(_x(st, npad, seed=5)[0].astype(np.float32))
@@ -225,8 +214,8 @@ def test_fused_form_and_ecorr_vs_jax(built, case):
     assert np.abs(got - ref).max() <= 1e-6 * max(np.abs(ref).max(), 1e-30)
 
 
-def test_wrapper_checks_and_cpu_route(built):
-    _, st, _, _, cpt, _, npad = built[("q", 12)]
+def test_wrapper_checks_and_cpu_route():
+    _, st, _, _, cpt, _, npad = _build(("q", 12))
     x = torch.zeros((6, npad), dtype=torch.float64)
     y = class_stencil(cpt.a64, x)
     torch.testing.assert_close(y, class_stencil_plain(cpt.a64, x))
@@ -239,7 +228,7 @@ def test_wrapper_checks_and_cpu_route(built):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_packed_launch_arguments(built, case):
+def test_packed_launch_arguments(case):
     """Each table's launch arguments, packed once: the interior
     coefficients by stencil slot (dy + 1) * 3 + (dx + 1) in the table's
     type (f64 for the CG operator, f32 for t0 and E), zeros in the slots
@@ -248,7 +237,7 @@ def test_packed_launch_arguments(built, case):
     ul_lr=False: 2; quad, all nine slots: 0), the all-36 instance on
     request. The pair path's E table likewise. The CPU route is the plain
     version, bit for bit, fused form included."""
-    _, st, _, _, cpt, _, npad = built[case]
+    _, st, _, _, cpt, _, npad = _build(case)
     ec = tcm.build_pair_ecorr(st, device="cpu")
     slots = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
     shape = 0 if case[0] == "q" else 2
@@ -282,10 +271,10 @@ def test_packed_launch_arguments(built, case):
         assert torch.equal(class_stencil(tab, x, w=w, b=b), class_stencil_plain(tab, x, w=w, b=b))
 
 
-def test_masks_must_cover_the_table(built):
+def test_masks_must_cover_the_table():
     """A table whose masks leave out one of its nonzeros is refused when it
     is built (the flat instance would drop it)."""
-    _, st, _, _, cpt, _, _ = built[("t", 12)]
+    _, st, _, _, cpt, _, _ = _build(("t", 12))
     nyp, nxp = cpt.nyp, cpt.nxp
     bands = cpt.hi.bands.numpy()
     parts = (bands[..., :nxp], bands[..., nxp : 2 * nxp], bands[..., 2 * nxp : 2 * nxp + nyp],

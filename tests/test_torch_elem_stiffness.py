@@ -16,9 +16,11 @@ shapes (a 1:20 rectangle, a trapezoid, a quad turned into 3-D, a warped
 quad far from the origin), four elements each: the card's gates hold the
 kernel against this plain version. Tolerance: 1e-12 of each element's
 max|ke| (f64 in another order of operations, and the df pair's ~2^-48
-arithmetic). Each JAX call runs once, in a module fixture (8.7-10.1 s
-eagerly).
+arithmetic). Each JAX call runs in the one test that compares with it
+(the df interpretation takes 8.7-10.1 s eagerly); the hard shapes' f64
+call runs once in a test process, on first use.
 """
+import functools
 import re
 
 import jax
@@ -36,16 +38,6 @@ from fem_shell_tpu_torch.ops import elem_stiffness as tes
 
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 GATE = 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _elements(m: int, seed: int) -> np.ndarray:
@@ -112,27 +104,32 @@ def _hard_quads(seed: int = 57):
 HARD_QUADS = ("rect-1:20", "trapezoid", "rotated-3d", "warped-far")
 
 
-@pytest.fixture(scope="module")
-def cases():
-    """Per family: coordinates, the JAX df-interpreted stiffness (hi + lo),
-    the JAX vmapped f64 stiffness on the same coordinates, and the port's
-    plain version; all [6m, 6m, 8]."""
-    out = {}
+def _family(m):
+    """The 8 elements of one family: their coordinates (exact two-float32
+    pairs, and the f64 sum of each) and the port's plain stiffness; the
+    stiffnesses [6m, 6m, 8]."""
     dm, dp = (torch.from_numpy(a) for a in JMAT.matrices())
-    for m in (3, 4):
-        hi, lo = _elements(m, seed=50 + m)
-        xyz = hi.astype(np.float64) + lo.astype(np.float64)  # exact
-        kfn = _kernel_fn(m)
-        (ke_df,) = df_function_bl(kfn)(DF(jnp.asarray(hi), jnp.asarray(lo)))
-        df = np.asarray(ke_df.hi, np.float64) + np.asarray(ke_df.lo, np.float64)
-        f64 = np.moveaxis(np.asarray(jax.jit(jax.vmap(kfn))(jnp.asarray(np.moveaxis(xyz, 2, 0)))), 0, 2)
-        port = tes.elem_stiffness(torch.from_numpy(xyz), dm, dp, JMAT.thickness).numpy()
-        out[m] = {"xyz": xyz, "df": df, "f64": f64, "port": port, "dm": dm, "dp": dp}
-    # the harder Quad-4 shapes, one vmapped f64 call for all of them
+    hi, lo = _elements(m, seed=50 + m)
+    xyz = hi.astype(np.float64) + lo.astype(np.float64)  # exact
+    port = tes.elem_stiffness(torch.from_numpy(xyz), dm, dp, JMAT.thickness).numpy()
+    return {"hi": hi, "lo": lo, "xyz": xyz, "port": port, "dm": dm, "dp": dp}
+
+
+def _jax_f64(m, xyz):
+    """The JAX package's vmapped f64 stiffness of batch-last coordinates."""
+    return np.moveaxis(np.asarray(jax.jit(jax.vmap(_kernel_fn(m)))(jnp.asarray(np.moveaxis(xyz, 2, 0)))), 0, 2)
+
+
+@functools.cache
+def _hard():
+    """Per harder Quad-4 shape: its coordinates, JAX f64 and port
+    stiffness; one vmapped f64 call for all of them."""
+    dm, dp = (torch.from_numpy(a) for a in JMAT.matrices())
     hard = _hard_quads()
     xyz = np.concatenate([hard[k] for k in HARD_QUADS], axis=2)
-    f64 = np.moveaxis(np.asarray(jax.jit(jax.vmap(_kernel_fn(4)))(jnp.asarray(np.moveaxis(xyz, 2, 0)))), 0, 2)
+    f64 = _jax_f64(4, xyz)
     port = tes.elem_stiffness(torch.from_numpy(xyz), dm, dp, JMAT.thickness).numpy()
+    out = {}
     for i, k in enumerate(HARD_QUADS):
         sl = slice(4 * i, 4 * i + 4)
         out[k] = {"xyz": hard[k], "f64": f64[:, :, sl], "port": port[:, :, sl]}
@@ -145,19 +142,26 @@ def _per_element_err(got, ref):
 
 
 @pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
-def test_plain_matches_jax_df_interpretation(cases, m):
+def test_plain_matches_jax_df_interpretation(m):
     """The port against the JAX TPU kernel's arithmetic (df_function_bl,
     which the Pallas kernel reproduces bit for bit)."""
-    c = cases[m]
-    assert c["port"].shape == c["df"].shape == (6 * m, 6 * m, 8)
-    assert _per_element_err(c["port"], c["df"]) <= GATE
+    c = _family(m)
+    (ke_df,) = df_function_bl(_kernel_fn(m))(DF(jnp.asarray(c["hi"]), jnp.asarray(c["lo"])))
+    df = np.asarray(ke_df.hi, np.float64) + np.asarray(ke_df.lo, np.float64)
+    assert c["port"].shape == df.shape == (6 * m, 6 * m, 8)
+    assert _per_element_err(c["port"], df) <= GATE
 
 
 @pytest.mark.parametrize("m", [3, 4, *HARD_QUADS], ids=["tri", "quad", *(f"quad-{k}" for k in HARD_QUADS)])
-def test_plain_matches_jax_f64_elements(cases, m):
-    c = cases[m]
-    assert c["port"].shape == c["f64"].shape
-    assert _per_element_err(c["port"], c["f64"]) <= GATE
+def test_plain_matches_jax_f64_elements(m):
+    if m in (3, 4):
+        c = _family(m)
+        f64 = _jax_f64(m, c["xyz"])
+    else:
+        c = _hard()[m]
+        f64 = c["f64"]
+    assert c["port"].shape == f64.shape
+    assert _per_element_err(c["port"], f64) <= GATE
 
 
 def test_kernel_source_keeps_launches_repeatable():
@@ -171,10 +175,10 @@ def test_kernel_source_keeps_launches_repeatable():
 
 
 @pytest.mark.parametrize("m", [3, 4], ids=["tri", "quad"])
-def test_cpu_takes_the_plain_version_uncounted(cases, m):
+def test_cpu_takes_the_plain_version_uncounted(m):
     """On the CPU the wrapper returns the plain version, batch-last and
     contiguous, and counts no launch."""
-    c = cases[m]
+    c = _family(m)
     before = dict(tes.elem_stiffness.launches)
     xyz = torch.from_numpy(c["xyz"])
     ke = tes.elem_stiffness(xyz, c["dm"], c["dp"], JMAT.thickness)
@@ -183,8 +187,8 @@ def test_cpu_takes_the_plain_version_uncounted(cases, m):
     assert tes.elem_stiffness.launches == before
 
 
-def test_wrapper_refuses_bad_inputs(cases):
-    c = cases[3]
+def test_wrapper_refuses_bad_inputs():
+    c = _family(3)
     xyz, dm, dp = torch.from_numpy(c["xyz"]), c["dm"], c["dp"]
     t = JMAT.thickness
     with pytest.raises(TypeError, match="float64"):

@@ -26,17 +26,6 @@ from fem_shell_tpu_torch.convert import levels_from_jax, material_from_jax, mesh
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores, and oversubscribed torch threads slow the solves
-    here by over an order of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _mesh(et, n):
     p = JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
     return jgenerate(p)

@@ -29,6 +29,7 @@ converge as the pair does. ROADMAP.md Queue 3 records the reference's
 behaviour.
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,17 +55,6 @@ JAX_PAIR_ITERS = {"t": 15, "q": 9}  # solve_df(rtol=1e-6), class_operator=False
 JAX_REFINED_W = {"t": 0.10625490}  # solve_df_refined(rtol=1e-9), class operator
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores, and oversubscribed torch threads slow the solves
-    here by over an order of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _plate(et, n):
     p = JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
     jmesh, rows, fac = jgenerate(p)
@@ -76,30 +66,27 @@ def _scale(mesh, **kw):
                                     smoother="chebyshev", device="cpu", **kw)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Per plate: the class-operator system, its solve_df at 1e-6 and 1e-9,
-    its refined solve, and the port's own solve_fused field."""
-    out = {}
-    for et in "tq":
-        jmesh, mesh, forces = _plate(et, 32)
-        mg = _scale(mesh)
-        r = {"jmesh": jmesh, "mesh": mesh, "forces": forces, "mg": mg}
-        mg.solve_df(forces, rtol=1e-6)
-        r["iters6"], r["res6"] = mg.last_iters, mg.last_residual
-        r["u9"] = mg.solve_df(forces, rtol=1e-9)
-        r["res9"] = mg.last_residual
-        r["u_ref"] = mg.solve_df_refined(forces, rtol=1e-9)
-        r["hist"], r["inner"] = list(mg.refine_history), list(mg.refine_inner_iters)
-        fused = tmg.MultigridShellSystem(mesh, TMAT, assemble=False, device="cpu")
-        r["u_fused"] = fused.solve_fused(forces, rtol=1e-9)
-        out[et] = r
-    return out
+@functools.cache
+def _run(et):
+    """One plate: the class-operator system, its solve_df at 1e-6 and
+    1e-9, its refined solve, and the port's own solve_fused field."""
+    jmesh, mesh, forces = _plate(et, 32)
+    mg = _scale(mesh)
+    r = {"jmesh": jmesh, "mesh": mesh, "forces": forces, "mg": mg}
+    mg.solve_df(forces, rtol=1e-6)
+    r["iters6"], r["res6"] = mg.last_iters, mg.last_residual
+    r["u9"] = mg.solve_df(forces, rtol=1e-9)
+    r["res9"] = mg.last_residual
+    r["u_ref"] = mg.solve_df_refined(forces, rtol=1e-9)
+    r["hist"], r["inner"] = list(mg.refine_history), list(mg.refine_inner_iters)
+    fused = tmg.MultigridShellSystem(mesh, TMAT, assemble=False, device="cpu")
+    r["u_fused"] = fused.solve_fused(forces, rtol=1e-9)
+    return r
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_level0_is_the_class_operator(runs, et):
-    mg = runs[et]["mg"]
+def test_level0_is_the_class_operator(et):
+    mg = _run(et)["mg"]
     assert mg.n_levels == 2 and mg._fine64 is None
     l0, l1 = mg.levels
     assert l0.values is None and l0.cparts is not None and l0.cparts is mg._cdf
@@ -108,26 +95,26 @@ def test_level0_is_the_class_operator(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_level0_damping_matches_jax(runs, et):
-    l0 = runs[et]["mg"].levels[0]
+def test_level0_damping_matches_jax(et):
+    l0 = _run(et)["mg"].levels[0]
     assert abs(float(l0.lam) - JAX_LAM[et]) <= 1e-5 * JAX_LAM[et]
     assert abs(float(l0.omega) - JAX_OMEGA[et]) <= 1e-5 * JAX_OMEGA[et]
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_solve_df_iterations_match_jax_pair(runs, et):
-    r = runs[et]
+def test_solve_df_iterations_match_jax_pair(et):
+    r = _run(et)
     assert abs(r["iters6"] - JAX_PAIR_ITERS[et]) <= 1
     assert r["res6"] < 1e-6 and r["res9"] < 1e-9
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_solves_agree_with_solve_fused(runs, et):
+def test_solves_agree_with_solve_fused(et):
     """solve_df at 1e-9 and solve_df_refined against the port's own f64
     solve_fused field (held against JAX in tests/test_torch_mg.py): three
     solves of one operator to relative residual 1e-9, where kappa ~ 1e7
     leaves ~1e-8 of max|u| apart, so 1e-6 holds with room."""
-    r = runs[et]
+    r = _run(et)
     scale = float(r["u_fused"].abs().max())
     for u in (r["u9"], r["u_ref"]):
         assert tuple(u.shape) == (r["mesh"].n_nodes, 6) and u.dtype == torch.float64
@@ -135,12 +122,12 @@ def test_solves_agree_with_solve_fused(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_refined_solve_true_residual(runs, et):
+def test_refined_solve_true_residual(et):
     """The refinement reaches rtol 1e-9 on the true operator, and the
     solution's residual, recomputed with the JAX package's longdouble
     oracle, is <= 1e-8 of ||b||; the tri centre deflection matches the
     JAX refined solve's to 1e-6 relative."""
-    r = runs[et]
+    r = _run(et)
     hist = r["hist"]
     assert hist[-1] < 1e-9 and all(np.isfinite(hist))
     assert sum(r["inner"]) == r["mg"].last_iters and len(r["inner"]) == len(hist)
@@ -154,11 +141,11 @@ def test_refined_solve_true_residual(runs, et):
         assert abs(w - JAX_REFINED_W[et]) <= 1e-6 * JAX_REFINED_W[et]
 
 
-def test_staged_io_and_reassemble(runs):
+def test_staged_io_and_reassemble():
     """stage_forces / return_device / fetch_solution give the host path's
     field bit for bit; solve_df_refined takes the staged handle;
     reassemble() rebuilds a matrix-free level 0 and the same solve."""
-    r = runs["q"]
+    r = _run("q")
     mg, forces = r["mg"], r["forces"]
     u_host = mg.solve_df(forces, rtol=1e-6).numpy()
     f_dev = mg.stage_forces(forces)

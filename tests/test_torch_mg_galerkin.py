@@ -76,14 +76,6 @@ PAIR_ITERS = 67
 FUSED_ROOF_ITERS = 90
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _roof(n):
     jmesh, forces, mid = jshells.scordelis_lo(n)
     return jmesh, mesh_from_jax(jmesh), forces, mid

@@ -12,6 +12,8 @@ numbers (ROADMAP.md Queue 3: tri 25 inner iterations, centre
 0.1062548953; quad 15, 0.1064630751). The JAX package's own pair path
 stalls on the CPU (tests/test_torch_mg_pair.py), so those are the port's.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -25,16 +27,6 @@ from fem_shell_tpu_torch.convert import material_from_jax, mesh_from_jax
 TMAT = material_from_jax(JMaterial(nu=0.3, em=1e7, thickness=0.5))
 # the port's pair-path solve_df_refined(rtol=1e-9) at 32^2 (index_add_ build)
 PINNED = {"t": {"inner": [13, 12], "w": 0.1062548953}, "q": {"inner": [8, 7], "w": 0.1064630751}}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _system(mesh, **kw):
@@ -61,56 +53,53 @@ def _index_add_system(mesh, **kw):
         return _system(mesh, **kw)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Per plate: the pair path built with index_add_ ("ref"), below the
+@functools.cache
+def _run(et):
+    """One plate: the pair path built with index_add_ ("ref"), below the
     threshold ("small", assemble_grid calls counted in the constructor)
     and through the grid pipeline over a lowered threshold ("grid",
     assemble_grid calls counted in the constructor and in reassemble());
     the class path through the grid pipeline."""
-    out = {}
-    for et in "tq":
-        jmesh, rows, fac = jgenerate(JParams(et, 32, 32, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2,
-                                             et == "q", "z"))
-        mesh, forces = mesh_from_jax(jmesh), rows * fac
-        r = {"ref": _snapshot(_index_add_system(mesh, class_operator=False, sym_spmv=True), forces)}
-        with pytest.MonkeyPatch.context() as mp:
-            calls = []
-            real = tlarge.assemble_grid
+    jmesh, rows, fac = jgenerate(JParams(et, 32, 32, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2,
+                                         et == "q", "z"))
+    mesh, forces = mesh_from_jax(jmesh), rows * fac
+    r = {"ref": _snapshot(_index_add_system(mesh, class_operator=False, sym_spmv=True), forces)}
+    with pytest.MonkeyPatch.context() as mp:
+        calls = []
+        real = tlarge.assemble_grid
 
-            def counted(*args, **kw):
-                calls.append(args[0].nxp)
-                return real(*args, **kw)
+        def counted(*args, **kw):
+            calls.append(args[0].nxp)
+            return real(*args, **kw)
 
-            mp.setattr(tlarge, "assemble_grid", counted)
-            small = _system(mesh, class_operator=False)
-            r["small_calls"] = list(calls)
-            r["small"] = _snapshot(small, forces)
-            del calls[:]
-            mp.setattr(tlarge, "GRID_MIN_ELEMENTS", 1024)
-            mg = _system(mesh, class_operator=False)
-            r["ctor_calls"] = list(calls)
-            r["grid"] = _snapshot(mg, forces)
-            del calls[:]
-            mg.reassemble()
-            r["reassemble_calls"] = list(calls)
-            r["n_levels"] = mg.n_levels
-            del calls[:]
-            cls = _system(mesh)
-            r["class_calls"] = list(calls)
-            r["class_w"] = float(cls.solve_df_refined(forces, rtol=1e-9)[len(jmesh.coords) // 2, 2])
-        r["class_ref_w"] = float(_system(mesh).solve_df_refined(forces, rtol=1e-9)[len(jmesh.coords) // 2, 2])
-        out[et] = r
-    return out
+        mp.setattr(tlarge, "assemble_grid", counted)
+        small = _system(mesh, class_operator=False)
+        r["small_calls"] = list(calls)
+        r["small"] = _snapshot(small, forces)
+        del calls[:]
+        mp.setattr(tlarge, "GRID_MIN_ELEMENTS", 1024)
+        mg = _system(mesh, class_operator=False)
+        r["ctor_calls"] = list(calls)
+        r["grid"] = _snapshot(mg, forces)
+        del calls[:]
+        mg.reassemble()
+        r["reassemble_calls"] = list(calls)
+        r["n_levels"] = mg.n_levels
+        del calls[:]
+        cls = _system(mesh)
+        r["class_calls"] = list(calls)
+        r["class_w"] = float(cls.solve_df_refined(forces, rtol=1e-9)[len(jmesh.coords) // 2, 2])
+    r["class_ref_w"] = float(_system(mesh).solve_df_refined(forces, rtol=1e-9)[len(jmesh.coords) // 2, 2])
+    return r
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_every_level_through_the_grid_pipeline(runs, et):
+def test_every_level_through_the_grid_pipeline(et):
     """From the threshold on, every level is assembled by assemble_grid, in
     the constructor and in reassemble(); the class path's coarse levels
     too (its fine level is the class operator). Symmetric storage follows
     the same threshold."""
-    r = runs[et]
+    r = _run(et)
     nl = r["n_levels"]
     widths = [32 // 2**lvl + 1 for lvl in range(nl)]
     assert r["grid"]["big"] and r["grid"]["sym"] and not r["ref"]["big"]
@@ -120,12 +109,12 @@ def test_every_level_through_the_grid_pipeline(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_grid_levels_match_index_add_levels(runs, et):
+def test_grid_levels_match_index_add_levels(et):
     """The f64 fine operator to 1e-13 of max|A|; every f32 level entry
     within one f32 ulp of the index_add_ build's, except cancellation
     residues (both builds under 1e-13 of max|A|, where the f64 gate
     governs); the Jacobi diagonals likewise within one ulp."""
-    ref, got = runs[et]["ref"], runs[et]["grid"]
+    ref, got = _run(et)["ref"], _run(et)["grid"]
     scale = float(ref["fine64"].abs().max())
     assert float((got["fine64"] - ref["fine64"]).abs().max()) <= 1e-13 * scale
     inf = torch.tensor(float("inf"))
@@ -137,11 +126,11 @@ def test_grid_levels_match_index_add_levels(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_grid_built_pair_solve_keeps_pinned_numbers(runs, et):
+def test_grid_built_pair_solve_keeps_pinned_numbers(et):
     """solve_df_refined(rtol=1e-9) on the grid-built pair path takes the
     index_add_ build's inner iterations (the pinned counts) and its centre
     deflection."""
-    ref, got = runs[et]["ref"], runs[et]["grid"]
+    ref, got = _run(et)["ref"], _run(et)["grid"]
     assert got["inner"] == ref["inner"] == PINNED[et]["inner"]
     assert got["w"] == pytest.approx(ref["w"], rel=1e-12)
     assert got["w"] == pytest.approx(PINNED[et]["w"], rel=1e-9)
@@ -149,12 +138,12 @@ def test_grid_built_pair_solve_keeps_pinned_numbers(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_small_system_assembles_every_level_through_the_grid_pipeline(runs, et):
+def test_small_system_assembles_every_level_through_the_grid_pipeline(et):
     """Below the threshold (the 32^2 plate, 1024 / 2048 elements) every
     level still comes from assemble_grid, so the assembly is bitwise
     repeatable; full storage as the JAX package's default there; the
     pinned pair iterations (25 tri / 15 quad) and centre deflection."""
-    r = runs[et]
+    r = _run(et)
     small = r["small"]
     assert r["small_calls"] == [32 // 2**lvl + 1 for lvl in range(r["n_levels"])]
     assert not small["big"] and not small["sym"]

@@ -25,6 +25,7 @@ FMA-contracts (tests/test_exact_stencil.py:186-193). So the port is held to
 its own class path on the same mesh, which is the same operator, and the
 JAX numbers stand as reference behaviour (ROADMAP.md Queue 3).
 """
+import functools
 import gc
 import weakref
 
@@ -51,16 +52,6 @@ JAX_PAIR = {
 }
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _plate(et, n):
     p = JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
     jmesh, rows, fac = jgenerate(p)
@@ -78,40 +69,37 @@ def _refined(mg, forces):
             "iters": mg.last_iters}
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Per plate: the class path's refined solve; the pair path with
+@functools.cache
+def _run(et):
+    """One plate: the class path's refined solve; the pair path with
     symmetric storage (its state before the solve, the solve, then
     reassemble() and a second solve, then solve_df on the class pair);
     the pair path with full storage."""
-    out = {}
-    for et in "tq":
-        jmesh, mesh, forces = _plate(et, 32)
-        r = {"jmesh": jmesh, "forces": forces}
-        r["class"] = _refined(_scale(mesh), forces)
-        mg = _scale(mesh, class_operator=False, sym_spmv=True)
-        r["before"] = (mg._fine_sym is not None, mg._class_pair_done, mg._fine64)
-        r["sym"] = _refined(mg, forces)
-        r["pair_state"] = (mg._fine64, mg._fine_sym, mg.levels[0].values, mg.levels[0].inv_diag)
-        mg.reassemble()
-        r["reassembled"] = (mg._class_pair_done, mg._fine64, mg._fine_sym is not None)
-        r["sym2"] = _refined(mg, forces)
-        r["df"] = mg.solve_df(forces, rtol=1e-9)
-        r["df_state"] = (mg._fine64, mg._fine_sym, mg.last_residual)
-        r["mg"] = mg
-        full = _scale(mesh, class_operator=False, sym_spmv=False)
-        r["full"] = _refined(full, forces)
-        r["full_sym"] = full._fine_sym
-        out[et] = r
-    return out
+    jmesh, mesh, forces = _plate(et, 32)
+    r = {"jmesh": jmesh, "forces": forces}
+    r["class"] = _refined(_scale(mesh), forces)
+    mg = _scale(mesh, class_operator=False, sym_spmv=True)
+    r["before"] = (mg._fine_sym is not None, mg._class_pair_done, mg._fine64)
+    r["sym"] = _refined(mg, forces)
+    r["pair_state"] = (mg._fine64, mg._fine_sym, mg.levels[0].values, mg.levels[0].inv_diag)
+    mg.reassemble()
+    r["reassembled"] = (mg._class_pair_done, mg._fine64, mg._fine_sym is not None)
+    r["sym2"] = _refined(mg, forces)
+    r["df"] = mg.solve_df(forces, rtol=1e-9)
+    r["df_state"] = (mg._fine64, mg._fine_sym, mg.last_residual)
+    r["mg"] = mg
+    full = _scale(mesh, class_operator=False, sym_spmv=False)
+    r["full"] = _refined(full, forces)
+    r["full_sym"] = full._fine_sym
+    return r
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_pair_system_holds_upper_half(runs, et):
+def test_pair_system_holds_upper_half(et):
     """sym_spmv=True keeps the assembled operator's upper half from the
     constructor on; after the refinement the operator is the class pair
     and the upper half is rebuilt from it; full storage keeps none."""
-    r = runs[et]
+    r = _run(et)
     has_sym, done, fine64_0 = r["before"]
     assert has_sym and not done and fine64_0 is not None
     mg = r["mg"]
@@ -139,10 +127,10 @@ def test_sym_spmv_default_follows_the_mesh_size():
 
 @pytest.mark.parametrize("et", ["t", "q"])
 @pytest.mark.parametrize("storage", ["sym", "full"])
-def test_pair_refined_history(runs, et, storage):
+def test_pair_refined_history(et, storage):
     """A finite history that stops at rtol or at the representation floor
     (a pass that gains less than 10x)."""
-    s = runs[et][storage]
+    s = _run(et)[storage]
     hist = s["hist"]
     assert all(np.isfinite(hist)) and len(hist) == len(s["inner"])
     assert hist[-1] < 1e-9 or (len(hist) > 1 and hist[-1] > 0.1 * hist[-2])
@@ -150,10 +138,10 @@ def test_pair_refined_history(runs, et, storage):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_pair_true_residual_matches_history(runs, et):
+def test_pair_true_residual_matches_history(et):
     """The last history entry is the returned field's true residual:
     recomputed with the JAX package's longdouble oracle, within 10 %."""
-    r = runs[et]
+    r = _run(et)
     jmesh, u = r["jmesh"], r["sym"]["u"].numpy()
     st = build_exact_stencil(jmesh, JMAT, r["mg"].levels[0].offsets)
     b = (np.asarray(r["forces"]) * ~jmesh.dirichlet_mask()).T
@@ -162,12 +150,12 @@ def test_pair_true_residual_matches_history(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_pair_agrees_with_class_path(runs, et):
+def test_pair_agrees_with_class_path(et):
     """One operator, two storages: the pair path's centre deflection
     matches the class path's to 1e-8 relative, its inner iterations are
     within 3 of the class path's, and symmetric and full storage take the
     same count within 1."""
-    r = runs[et]
+    r = _run(et)
     ctr = r["jmesh"].n_nodes // 2
     w_c = float(r["class"]["u"][ctr, 2])
     for storage in ("sym", "full"):
@@ -178,11 +166,11 @@ def test_pair_agrees_with_class_path(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_reassemble_then_solve_reproduces(runs, et):
+def test_reassemble_then_solve_reproduces(et):
     """reassemble() drops the class pair for the assembled operator and
     its upper half; the next refined solve swaps the pair in again and
     reproduces the first solve to 1e-12."""
-    r = runs[et]
+    r = _run(et)
     done, fine64, has_sym = r["reassembled"]
     assert not done and has_sym and not torch.equal(fine64, r["pair_state"][0])
     u1, u2 = r["sym"]["u"], r["sym2"]["u"]
@@ -191,11 +179,11 @@ def test_reassemble_then_solve_reproduces(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_solve_df_after_refinement_uses_class_pair(runs, et):
+def test_solve_df_after_refinement_uses_class_pair(et):
     """solve_df after the refinement runs CG on the class pair's upper
     half (the sym kernel's plain version here) and meets its rtol; its
     field is the refined one to 1e-6 of max|u|."""
-    r = runs[et]
+    r = _run(et)
     a64, sym, res = r["df_state"]
     assert torch.equal(sym, prepare_sym_values(a64, r["mg"].levels[0].offsets))
     assert res < 1e-9
@@ -204,14 +192,14 @@ def test_solve_df_after_refinement_uses_class_pair(runs, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_jax_pair_reference(runs, et):
+def test_jax_pair_reference(et):
     """Where the JAX pair-path run on the CPU reaches a true residual
     under 1e-8, the port's centre holds to its centre at 1e-6; where it
     stalls higher (FMA-degraded df EFTs: both plates at 32^2), the port's
     final residual is at least 1e3 times lower and its centre holds to the
     class path (test_pair_agrees_with_class_path)."""
-    ref, s = JAX_PAIR[et], runs[et]["sym"]
-    w = float(s["u"][runs[et]["jmesh"].n_nodes // 2, 2])
+    ref, s = JAX_PAIR[et], _run(et)["sym"]
+    w = float(s["u"][_run(et)["jmesh"].n_nodes // 2, 2])
     if ref["hist"][-1] < 1e-8:
         assert abs(w - ref["w"]) <= 1e-6 * ref["w"]
     else:

@@ -39,14 +39,6 @@ TMAT = material_from_jax(JMAT)
 N, COARSE_MAX, OMEGA = 16, 4, 0.5
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _plate(et, n=N):
     jmesh, rows, fac = jgenerate(JParams(et, n, n, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z"))
     return jmesh, mesh_from_jax(jmesh), rows * fac

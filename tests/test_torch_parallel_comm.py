@@ -2,13 +2,17 @@
 the CPU, over gloo: the collectives against numpy on 2 and 3 ranks (rank
 r holds a seeded array of its own), directly and through the host-copy
 path gloo takes for ranks on a card, bitwise repeats, a rank's exception
-raised in the controller within seconds, and the nccl backend refused
-before any rank starts where there is no GPU for each rank.
+raised in the controller within seconds, ranks that exit on their own when
+their controller is gone, and the nccl backend refused before any rank
+starts where there is no GPU for each rank.
 
 Each mesh is spawned once per module, in the background. The ranks start from the package's
 ``comm.rank_main`` and run the commands below, which they import from this
 module by name."""
 import multiprocessing
+import pathlib
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -113,3 +117,34 @@ def test_nccl_without_gpus_raises_before_spawn(monkeypatch):
     with pytest.raises(ValueError, match="unknown backend"):
         pcomm.DeviceMesh(2, device="cpu", backend="mpi")
     assert len(multiprocessing.active_children()) == before
+
+
+def _running(pid):
+    """Whether ``pid`` is a live process (a zombie has exited)."""
+    try:
+        stat = pathlib.Path(f"/proc/{pid}/stat").read_text()
+    except FileNotFoundError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def test_ranks_exit_when_the_controller_is_gone(tmp_path):
+    """A controller that ends without closing its mesh (``os._exit`` skips
+    the clean-up that stops the ranks, as does a kill) leaves no rank
+    behind: each idle rank sees its controller gone and exits."""
+    pids = tmp_path / "pids"
+    code = ("import os, sys\n"
+            "from fem_shell_tpu_torch.parallel import comm\n"
+            "mesh = comm.DeviceMesh(2, device='cpu')\n"
+            "open(sys.argv[1], 'w').write(' '.join(str(p.pid) for p in mesh._procs))\n"
+            "os._exit(1)\n")
+    with open(tmp_path / "stderr", "w") as err:
+        done = subprocess.run([sys.executable, "-c", code, str(pids)], cwd=pathlib.Path(__file__).parents[1],
+                              stdout=subprocess.DEVNULL, stderr=err, timeout=120)
+    assert done.returncode == 1, (tmp_path / "stderr").read_text()
+    ranks = [int(p) for p in pids.read_text().split()]
+    assert len(ranks) == 2
+    deadline = time.monotonic() + 10
+    while any(map(_running, ranks)) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not any(map(_running, ranks))

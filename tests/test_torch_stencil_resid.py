@@ -31,6 +31,7 @@ convert.exact_stencil_from_jax). Gates:
   6.6e-17, ratios 3.1e-4 / 4.3e-4 (the test prints them).
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,33 +57,20 @@ JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 N = 16
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
-def built():
-    """Per element type: (jmesh, JAX ExactStencil, port ExactStencil,
+@functools.cache
+def _build(et):
+    """For one element type: (jmesh, JAX ExactStencil, port ExactStencil,
     offsets, npad, port a64, port hi, port E term)."""
-    out = {}
-    for et in "tq":
-        p = JParams(et, N, N, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
-        jmesh, _, _ = jgenerate(p)
-        jsys = JLarge(jmesh, JMAT)
-        npad = jsys.pattern.n_pad
-        st = jes.build_exact_stencil(jmesh, JMAT, jsys.offsets)
-        pst = exact_stencil_from_jax(st)
-        tfl0, tfl1, _, cls = tes.class_flat_tables(pst)
-        a64, hi = tes.class_pair_flat(tfl0, tfl1, cls, npad, device="cpu")
-        ec = tcm.build_pair_ecorr(pst, device="cpu")
-        out[et] = (jmesh, st, pst, tuple(int(o) for o in jsys.offsets), npad, a64, hi, ec)
-    return out
+    p = JParams(et, N, N, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
+    jmesh, _, _ = jgenerate(p)
+    jsys = JLarge(jmesh, JMAT)
+    npad = jsys.pattern.n_pad
+    st = jes.build_exact_stencil(jmesh, JMAT, jsys.offsets)
+    pst = exact_stencil_from_jax(st)
+    tfl0, tfl1, _, cls = tes.class_flat_tables(pst)
+    a64, hi = tes.class_pair_flat(tfl0, tfl1, cls, npad, device="cpu")
+    ec = tcm.build_pair_ecorr(pst, device="cpu")
+    return jmesh, st, pst, tuple(int(o) for o in jsys.offsets), npad, a64, hi, ec
 
 
 def _vec(npad, n, rows):
@@ -102,8 +90,8 @@ def _ld_matvec(pst, table_ld, x64):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_class_pair_matches_jax_bitwise(built, et):
-    _, st, pst, offsets, npad, a64, hi, _ = built[et]
+def test_class_pair_matches_jax_bitwise(et):
+    _, st, pst, offsets, npad, a64, hi, _ = _build(et)
     jtabs = jes.class_flat_tables(st)
     for got, ref in zip(tes.class_flat_tables(pst), jtabs):
         np.testing.assert_array_equal(got, ref)
@@ -125,8 +113,8 @@ def test_df_pair_from_jax_refuses_tile_major():
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_pair_ecorr_vs_oracle_and_jax(built, et):
-    _, st, pst, _, npad, _, _, ec = built[et]
+def test_pair_ecorr_vs_oracle_and_jax(et):
+    _, st, pst, _, npad, _, _, ec = _build(et)
     n = pst.nyp * pst.nxp
     rng = np.random.default_rng(5)
     x32 = _vec(npad, n, rng.normal(size=(6, n))).to(torch.float32)
@@ -150,8 +138,8 @@ def test_pair_ecorr_vs_oracle_and_jax(built, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_pair_residual_matches_jax_exact_residual(built, et):
-    _, st, pst, offsets, npad, a64, _, ec = built[et]
+def test_pair_residual_matches_jax_exact_residual(et):
+    _, st, pst, offsets, npad, a64, _, ec = _build(et)
     n = pst.nyp * pst.nxp
     rng = np.random.default_rng(3)
     xdf = df_from_f64(jnp.asarray(_vec(npad, n, rng.normal(size=(6, n)) * 1e-3).numpy()))
@@ -169,11 +157,11 @@ def test_pair_residual_matches_jax_exact_residual(built, et):
 
 
 @pytest.mark.parametrize("et", ["t", "q"])
-def test_compensated_residual_beats_f64(built, et):
+def test_compensated_residual_beats_f64(et):
     """A smooth field x (the shape of a plate's deflection, zero on the
     constrained DOFs) and b = fl64(A_true x): the true residual is only
     b's rounding, so every error of the evaluation shows."""
-    jmesh, _, pst, offsets, npad, a64, _, ec = built[et]
+    jmesh, _, pst, offsets, npad, a64, _, ec = _build(et)
     n = pst.nyp * pst.nxp
     iy, ix = np.meshgrid(np.arange(pst.nyp), np.arange(pst.nxp), indexing="ij")
     free = ~np.asarray(jmesh.dirichlet_mask())

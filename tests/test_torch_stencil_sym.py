@@ -10,6 +10,8 @@ through ``convert.df_pair_from_jax`` and x as the exact value of a df pair
 from a seed. Gate: 1e-13 of max|y| (df accumulation is ~eps49; the sym
 form sums the transposed terms in another order).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,31 +33,18 @@ from fem_shell_tpu_torch.ops.stencil_spmv_sym import (
 JMAT = JMaterial(nu=0.3, em=1e7, thickness=0.5)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
-def pairs():
-    """Per element type: (JAX df pair, offsets, npad, seeded df x)."""
-    out = {}
-    for et in "qt":
-        p = JParams(et, 16, 16, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
-        jmesh, _, _ = jgenerate(p)
-        s = JLarge(jmesh, JMAT, dtype=jnp.float64, chunk=64)
-        pair = s.assemble_df(strip_nodes=512, chunk=64)
-        npad = s.pattern.n_pad
-        rng = np.random.default_rng(11)
-        x = DF(jnp.asarray(rng.normal(size=(6, npad)), jnp.float32),
-               jnp.asarray(rng.normal(size=(6, npad)) * 1e-8, jnp.float32))
-        out[et] = (pair, tuple(int(o) for o in s.offsets), npad, x)
-    return out
+@functools.cache
+def _pair(et):
+    """For one element type: (JAX df pair, offsets, npad, seeded df x)."""
+    p = JParams(et, 16, 16, 0, 0, 10, 10, (0, 0, 0, 0), 300.0, 2, et == "q", "z")
+    jmesh, _, _ = jgenerate(p)
+    s = JLarge(jmesh, JMAT, dtype=jnp.float64, chunk=64)
+    pair = s.assemble_df(strip_nodes=512, chunk=64)
+    npad = s.pattern.n_pad
+    rng = np.random.default_rng(11)
+    x = DF(jnp.asarray(rng.normal(size=(6, npad)), jnp.float32),
+           jnp.asarray(rng.normal(size=(6, npad)) * 1e-8, jnp.float32))
+    return pair, tuple(int(o) for o in s.offsets), npad, x
 
 
 def _x64(x):
@@ -63,8 +52,8 @@ def _x64(x):
 
 
 @pytest.mark.parametrize("et,k", [("q", 9), ("t", 7)])
-def test_prepare_sym_values_keeps_upper_slots(pairs, et, k):
-    pair, offsets, npad, _ = pairs[et]
+def test_prepare_sym_values_keeps_upper_slots(et, k):
+    pair, offsets, npad, _ = _pair(et)
     v = df_pair_from_jax(pair, device="cpu")
     assert tuple(v.shape) == (36, k, npad) and len(offsets) == k
     up = prepare_sym_values(v, offsets)
@@ -75,8 +64,8 @@ def test_prepare_sym_values_keeps_upper_slots(pairs, et, k):
 
 
 @pytest.mark.parametrize("et", ["q", "t"])
-def test_sym_matvec_matches_jax_df(pairs, et):
-    pair, offsets, _, x = pairs[et]
+def test_sym_matvec_matches_jax_df(et):
+    pair, offsets, _, x = _pair(et)
     ref = df_stencil_matvec(pair, x, offsets)
     r64 = np.asarray(ref.hi, np.float64) + np.asarray(ref.lo, np.float64)
     v = df_pair_from_jax(pair, device="cpu")
@@ -86,8 +75,8 @@ def test_sym_matvec_matches_jax_df(pairs, et):
 
 
 @pytest.mark.parametrize("et", ["q", "t"])
-def test_sym_matvec_matches_full_storage(pairs, et):
-    pair, offsets, _, x = pairs[et]
+def test_sym_matvec_matches_full_storage(et):
+    pair, offsets, _, x = _pair(et)
     v = df_pair_from_jax(pair, device="cpu")
     x64 = _x64(x)
     ref = stencil_spmv_plain(v, x64, offsets)

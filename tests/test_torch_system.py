@@ -39,16 +39,6 @@ from fem_shell_tpu_torch.ops import assemble as tassemble
 from fem_shell_tpu_torch.ops.blockprec import cholesky6, cholesky6_solve
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny tensors: the test workers share
-    the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def solve(mesh, forces, nu, em, t, method="pcg", rtol=1e-12, maxiter=50000):
     system = ShellSystem(mesh, Material(nu=nu, em=em, thickness=t), device="cpu")
     u = system.solve(forces, method=method, rtol=rtol, maxiter=maxiter)
