@@ -1,9 +1,7 @@
-"""A time limit for each of the port's tests (``tests/test_torch_*.py``),
-without a plugin: the repository's root ``conftest.py`` imports the hooks
-below. The JAX package's own tests keep no limit (they run as they always
-have; several take over 300 s under ``-n 6`` with JAX's compilation cache
-empty), nor does a test marked ``slow`` (long by design, and outside the
-tier-1 run).
+"""A time limit for each test of the tier-1 run, without a plugin: the
+repository's root ``conftest.py`` imports the hooks below. A test marked
+``slow`` gets none (long by design, and outside the tier-1 run;
+``tier1_slow.py`` marks the JAX package's slowest tests).
 
 A test's set-up and call together get ``TEST_TIME_LIMIT_S``. At the limit
 ``SIGALRM`` fails the test with its name and the stacks of all its
@@ -30,13 +28,11 @@ import traceback
 
 import pytest
 
-# about twice the slowest test left in the tier-1 run (the xdist workers
+# over three times the slowest test left in the tier-1 run (the xdist workers
 # busy on every core, JAX's compilation cache empty)
 TEST_TIME_LIMIT_S = 300
 # how long a test may go on past its limit before its process is ended
 BACKSTOP_S = 60
-# the files whose tests get the limit
-PORT_TESTS = "test_torch_"
 
 # the real standard error, for the backstop's dump (set in pytest_configure)
 _stderr_fd = 2
@@ -67,7 +63,7 @@ def _thread_stacks(frame) -> str:
 @pytest.hookimpl(wrapper=True)
 def pytest_runtest_protocol(item, nextitem):
     global _deadline
-    if not item.path.name.startswith(PORT_TESTS) or item.get_closest_marker("slow"):
+    if item.get_closest_marker("slow"):
         return (yield)
     _deadline = time.monotonic() + TEST_TIME_LIMIT_S
     faulthandler.dump_traceback_later(TEST_TIME_LIMIT_S + BACKSTOP_S, exit=True, file=_stderr_fd)
